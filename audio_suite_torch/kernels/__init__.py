@@ -1,0 +1,120 @@
+"""Hand-written CUDA kernels of the port and their loader.
+
+Each ``<name>.cu`` in this directory is compiled with ``nvcc`` for Hopper
+(``sm_90a``) into a shared library with a plain C interface, on first use,
+into ``_build/`` beside it (git-ignored), named by a hash of the source and
+the flags, and loaded with ``ctypes``.  Nothing is built or loaded at import
+time.  A failed build or launch raises: there is no fallback.
+
+Each kernel wrapper counts its launches in its ``launches`` attribute, so
+a run can show that its main path went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+import torch
+
+KERNEL_DIR = os.path.dirname(os.path.abspath(__file__))
+BUILD_DIR = os.path.join(KERNEL_DIR, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels "
+                       "are built from source on first use")
+
+
+def build(name: str) -> str:
+    """Compile ``<name>.cu`` (if not built yet) and return the library's
+    path.  The compiler's output is kept in ``_build/<lib>.log``."""
+    src = os.path.join(KERNEL_DIR, name + ".cu")
+    with open(src, "rb") as f:
+        code = f.read()
+    tag = hashlib.sha256(code + " ".join(NVCC_FLAGS).encode()) \
+        .hexdigest()[:16]
+    so = os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
+    if os.path.exists(so):
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v",
+                           "-o", tmp, src],
+                          capture_output=True, text=True, timeout=600)
+    with open(so[:-3] + ".log", "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed to build {src}:\n{proc.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+# C signatures of each library: function -> (argtypes, restype).  Pointers
+# and the stream are c_void_p: a plain int argument would be cut to 32 bits.
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    "overlap_add": {
+        "oa_launch": ([_P, _P, _P, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_longlong, _P], ctypes.c_int),
+        "oa_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
+}
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(build(name))
+            for fn, (args, res) in _SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = args
+                getattr(lib, fn).restype = res
+            _libs[name] = lib
+        return lib
+
+
+def overlap_add(out: torch.Tensor, vals: torch.Tensor,
+                starts: torch.Tensor) -> torch.Tensor:
+    """Launch ``overlap_add.cu`` on the current stream: ``out`` f32[N] +=
+    the windows ``vals`` f32[E, Lw] at ``starts`` i32[E], in event order,
+    in place.  All three on one CUDA device, contiguous; 0 < Lw <= N."""
+    for t in (out, vals, starts):
+        if t.device.type != "cuda":
+            raise ValueError("overlap_add kernel: tensors must be on CUDA")
+        if not t.is_contiguous():
+            raise ValueError("overlap_add kernel: tensors must be "
+                             "contiguous")
+    if starts.dtype != torch.int32:
+        raise TypeError("overlap_add kernel: starts must be int32")
+    E, Lw = vals.shape
+    N = out.shape[0]
+    if not 0 < Lw <= N:
+        raise ValueError(f"overlap_add kernel: window {Lw}, buffer {N}")
+    if E == 0:
+        return out
+    lib = _lib("overlap_add")
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        rc = lib.oa_launch(vals.data_ptr(), starts.data_ptr(),
+                           out.data_ptr(), E, Lw, N, stream)
+    if rc != 0:
+        raise RuntimeError("overlap_add kernel launch failed: "
+                           + lib.oa_error_string(rc).decode())
+    overlap_add.launches += 1
+    return out
+
+
+overlap_add.launches = 0

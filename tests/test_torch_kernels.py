@@ -1,0 +1,91 @@
+"""The port's CUDA kernels held against their plain PyTorch versions on the
+card.  Imports no jax, so it runs where only PyTorch with CUDA and nvcc
+are installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels.py -q
+
+Without a CUDA device every test skips.
+"""
+import numpy as np
+import pytest
+import torch
+
+from audio_suite_torch import kernels
+from audio_suite_torch.models import microsound as ms
+from audio_suite_torch.ops import overlap_add as oa
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are built with nvcc "
+                    "for sm_90a and have no CPU mode")
+    return torch.device("cuda")
+
+
+def _oa_case(seed, E, Lw, N):
+    """Windows, unsorted starts (some needing the clamp) and a non-zero
+    base buffer."""
+    rng = np.random.default_rng(seed)
+    vals = rng.standard_normal((E, Lw)).astype(np.float32)
+    starts = rng.integers(-Lw // 2, N - Lw // 2, size=E).astype(np.int32)
+    starts[:3] = [-17, N - Lw + 5, N + 3]        # below 0 and past N - Lw
+    base = rng.standard_normal(N).astype(np.float32)
+    return torch.tensor(vals), torch.tensor(starts), torch.tensor(base)
+
+
+@pytest.mark.parametrize("E,Lw,N", [
+    (288, 19456, 851968),      # the full-size render's OA shapes
+    (24, 5120, 57344),         # the smoke render's
+    (5000, 1024, 1 << 20),     # more events than one shared-memory stage
+    (300, 777, 100003),        # ragged window and buffer lengths
+])
+def test_overlap_add_kernel_bit_equal_to_plain(cuda, E, Lw, N):
+    vals, starts, base = _oa_case(E + N, E, Lw, N)
+    want = oa.overlap_add_plain(base.clone(), vals, starts)
+    v, s = vals.to(cuda), starts.to(cuda)
+    plain = oa.overlap_add_plain(base.to(cuda), v, s)
+    n0 = kernels.overlap_add.launches
+    got = oa.overlap_add(base.to(cuda), v, s)
+    torch.cuda.synchronize()
+    assert kernels.overlap_add.launches == n0 + 1
+    assert torch.equal(got, plain)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_overlap_add_kernel_rejects_what_it_does_not_take(cuda):
+    vals, starts, base = _oa_case(0, 8, 256, 4096)
+    out = base.to(cuda)
+    with pytest.raises(TypeError):
+        oa.overlap_add(out, vals.to(cuda), starts.to(cuda).long())
+    with pytest.raises(ValueError):
+        oa.overlap_add(out, vals.to(cuda).t().contiguous().t(),
+                       starts.to(cuda))
+    with pytest.raises(ValueError):
+        oa.overlap_add(out, vals, starts)            # windows on the CPU
+    n0 = kernels.overlap_add.launches
+    oa.overlap_add(out, vals[:0].to(cuda), starts[:0].to(cuda))
+    assert kernels.overlap_add.launches == n0
+    assert torch.equal(out.cpu(), base)
+
+
+def test_smoke_render_on_cuda_matches_cpu(cuda):
+    rng = np.random.default_rng(11)
+    ir = (rng.standard_normal(8192) * np.exp(-np.arange(8192) / 800.0)) \
+        .astype(np.float32)
+    p = ms.MicrosoundParams.from_dict(dict(
+        base_sr=48000, out_dur_s=0.5, time_unfold=100.0,
+        gen_mode="Noise burst", micro_ms=1.0, grains_per_sec=60.0,
+        max_grains=24, partial_stretch=4.0, bandlimit_on=True,
+        bandlimit_out_hz=18000.0, bandlimit_roll_hz=2500.0,
+        er_cloud_on=True, space_ir_on=True, stereo_on=True,
+        bp_density="", bp_unfold="", bp_cutoff="", bp_stretch="", seed=5))
+    want, _ = ms.render(p, ir_audio=ir, device="cpu")
+    n0 = kernels.overlap_add.launches
+    got, _ = ms.render(p, ir_audio=ir, device=cuda)
+    torch.cuda.synchronize()
+    assert kernels.overlap_add.launches == n0 + 1
+    dev = (got.cpu().double() - want.double()).abs().max().item()
+    assert 20 * np.log10(max(dev, 1e-300)) <= -100.0
