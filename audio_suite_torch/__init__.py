@@ -5,12 +5,20 @@ its module layout (``ops/noise.py``, ``ops/spectral.py``,
 ``models/microsound.py``, ...) so each function has an obvious counterpart,
 and is held against it by ``tests/test_torch_*.py``.
 
-Ported so far: the Microsound render of the "Noise burst" generator with a
-shared stretch factor (the bench's high-rate transient-field configuration),
-end to end: host event program -> grain spectrum draw -> lowpass +
-spectral stretch -> ordered overlap-add -> ADSR, ER/IR convolution, stereo
-diffusion, soft clip, normalize, PCM16.  Paths outside that slice raise
-``NotImplementedError``.
+Ported so far:
+
+- the Microsound render of the "Noise burst" generator with a shared
+  stretch factor (the bench's high-rate transient-field configuration),
+  end to end: host event program -> grain spectrum draw -> lowpass +
+  spectral stretch -> ordered overlap-add -> ADSR, ER/IR convolution,
+  stereo diffusion, soft clip, normalize, PCM16;
+- the tape engine's default render (the bench's chopped varispeed
+  configuration): host control tables from the shared C++ runtime ->
+  wow/flutter synthesis, speed runs, segmented fixed-point positions,
+  section read index, anti-click and splice gains -> the linear read ->
+  clip, PCM16.
+
+Paths outside those slices raise ``NotImplementedError``.
 
 Conventions:
 
@@ -23,7 +31,8 @@ Conventions:
   the build or launch fails) and runs its plain PyTorch version only for
   CPU tensors.
 - the package never imports ``jax``; it shares only the JAX package's
-  jax-free host modules (event schedulers, breakpoint lanes).
+  jax-free host modules (event schedulers, breakpoint lanes, WAV I/O, the
+  loader of the C++ host runtime).
 """
 
 __version__ = "0.1.0"

@@ -71,6 +71,11 @@ _SIGNATURES = {
                        ctypes.c_longlong, _P], ctypes.c_int),
         "oa_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
+    "lerp_read": {
+        "lr_launch": ([_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P],
+                      ctypes.c_int),
+        "lr_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
 }
 
 
@@ -118,3 +123,45 @@ def overlap_add(out: torch.Tensor, vals: torch.Tensor,
 
 
 overlap_add.launches = 0
+
+
+def lerp_read(audio: torch.Tensor, idx0: torch.Tensor,
+              fr: torch.Tensor) -> torch.Tensor:
+    """Launch ``lerp_read.cu`` on the current stream and return the new
+    f32[T] ``(1 - fr) * audio[i0] + fr * audio[i1]``, with
+    ``i0 = clamp(idx0, 0, n - 1)`` and ``i1 = min(i0 + 1, n - 1)``.
+    ``audio`` f32[n], ``idx0`` i32[T], ``fr`` f32[T], all on one CUDA
+    device, contiguous; 0 < n < 2**31."""
+    for t in (audio, idx0, fr):
+        if t.device.type != "cuda":
+            raise ValueError("lerp_read kernel: tensors must be on CUDA")
+        if not t.is_contiguous():
+            raise ValueError("lerp_read kernel: tensors must be contiguous")
+    if not (audio.device == idx0.device == fr.device):
+        raise ValueError("lerp_read kernel: tensors must share one device")
+    if audio.dtype != torch.float32 or fr.dtype != torch.float32:
+        raise TypeError("lerp_read kernel: audio and fr must be float32")
+    if idx0.dtype != torch.int32:
+        raise TypeError("lerp_read kernel: idx0 must be int32")
+    if audio.dim() != 1 or idx0.dim() != 1 or idx0.shape != fr.shape:
+        raise ValueError("lerp_read kernel: wants audio [n], idx0 [T], "
+                         "fr [T]")
+    n, T = audio.shape[0], idx0.shape[0]
+    if not 0 < n < 2 ** 31:
+        raise ValueError(f"lerp_read kernel: audio length {n}")
+    out = torch.empty(T, dtype=torch.float32, device=audio.device)
+    if T == 0:
+        return out
+    lib = _lib("lerp_read")
+    with torch.cuda.device(audio.device):
+        stream = torch.cuda.current_stream(audio.device).cuda_stream
+        rc = lib.lr_launch(audio.data_ptr(), idx0.data_ptr(), fr.data_ptr(),
+                           out.data_ptr(), T, n, stream)
+    if rc != 0:
+        raise RuntimeError("lerp_read kernel launch failed: "
+                           + lib.lr_error_string(rc).decode())
+    lerp_read.launches += 1
+    return out
+
+
+lerp_read.launches = 0

@@ -12,7 +12,10 @@ import torch
 
 from audio_suite_torch import kernels
 from audio_suite_torch.models import microsound as ms
+from audio_suite_torch.models import tape
+from audio_suite_torch.ops import lerp_read as lr
 from audio_suite_torch.ops import overlap_add as oa
+from audio_suite_torch.ops import varispeed
 
 pytestmark = pytest.mark.cuda
 
@@ -89,3 +92,88 @@ def test_smoke_render_on_cuda_matches_cpu(cuda):
     assert kernels.overlap_add.launches == n0 + 1
     dev = (got.cpu().double() - want.double()).abs().max().item()
     assert 20 * np.log10(max(dev, 1e-300)) <= -100.0
+
+
+def _smoke_tape(device):
+    """Bench config 1 (bench.py:157-265) at its smoke size: the program on
+    ``device``."""
+    sr, seconds = 48000, 4.0
+    rng = np.random.default_rng(7)
+    t = np.arange(int(sr * seconds)) / sr
+    x = (0.5 * np.sin(2 * np.pi * 220 * t)
+         + 0.3 * np.sin(2 * np.pi * 933 * t + 0.5)
+         + 0.1 * rng.standard_normal(t.size))
+    audio = (x / np.max(np.abs(x))).astype(np.float32)
+    n = len(audio)
+    p = tape.TapeParams(
+        sample_rate=sr, markers=[int(n * f) for f in (0.12, 0.3, 0.45,
+                                                      0.6, 0.8)],
+        section_speeds=[1.0, 2.0, 0.5, 4.0, 0.25, 1.5],
+        section_reverse=[False, True, False, True, False, False],
+        tape_age=60)
+    p.section_speeds = tape.fit_to_target_time(p, n, seconds)
+    frames = tape.section_render_length(p, n)
+    return tape.build_tape_program(audio, p, frames, device=device)
+
+
+def _lr_random(seed, n, T):
+    """Random positions (some outside [0, n) for the clamp) and fractions
+    (some negative, the reverse read's edge case)."""
+    rng = np.random.default_rng(seed)
+    audio = rng.uniform(-1, 1, n).astype(np.float32)
+    idx0 = rng.integers(-3, n + 3, T).astype(np.int32)
+    fr = rng.uniform(-1, 1, T).astype(np.float32)
+    idx0[:4] = [n - 1, 0, -1, n]
+    return torch.tensor(audio), torch.tensor(idx0), torch.tensor(fr)
+
+
+@pytest.mark.parametrize("n,T", [(192000, 194338), (1000, 1 << 20),
+                                 (7, 1000), (1, 33)])
+def test_lerp_read_kernel_bit_equal_to_plain_random(cuda, n, T):
+    audio, idx0, fr = _lr_random(n + T, n, T)
+    want = lr.lerp_read_plain(audio, idx0, fr)
+    a, i, f = audio.to(cuda), idx0.to(cuda), fr.to(cuda)
+    plain = lr.lerp_read_plain(a, i, f)
+    n0 = kernels.lerp_read.launches
+    got = lr.lerp_read(a, i, f)
+    torch.cuda.synchronize()
+    assert kernels.lerp_read.launches == n0 + 1
+    assert torch.equal(got, plain)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_lerp_read_kernel_bit_equal_to_plain_tape_positions(cuda):
+    prog = _smoke_tape(cuda)
+    idx0, fr, _ = varispeed.tape_positions(
+        tape.device_tables(prog), prog["consts"], prog["audio"].shape[0],
+        prog["num_frames"])
+    plain = lr.lerp_read_plain(prog["audio"], idx0, fr)
+    got = lr.lerp_read(prog["audio"], idx0, fr)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain)
+
+
+def test_lerp_read_kernel_rejects_what_it_does_not_take(cuda):
+    audio, idx0, fr = _lr_random(0, 100, 64)
+    a, i, f = audio.to(cuda), idx0.to(cuda), fr.to(cuda)
+    n0 = kernels.lerp_read.launches
+    with pytest.raises(TypeError):
+        kernels.lerp_read(a, i.long(), f)
+    with pytest.raises(TypeError):
+        kernels.lerp_read(a, i, f.double())
+    with pytest.raises(ValueError):
+        kernels.lerp_read(a, i[::2], f[::2])          # not contiguous
+    with pytest.raises(ValueError):
+        kernels.lerp_read(audio, i, f)                # audio on the CPU
+    with pytest.raises(ValueError):
+        lr.lerp_read(a, i, f[:10])
+    assert kernels.lerp_read.launches == n0
+
+
+def test_tape_smoke_render_on_cuda_matches_cpu(cuda):
+    want, _ = tape.tape_table_render(_smoke_tape("cpu"))
+    n0 = kernels.lerp_read.launches
+    got, _ = tape.tape_table_render(_smoke_tape(cuda))
+    assert kernels.lerp_read.launches == n0 + 1
+    dev = np.abs(got.astype(np.float64) - want).max()
+    assert 20 * np.log10(max(dev, 1e-300)) <= -120.0
