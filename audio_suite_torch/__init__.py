@@ -30,9 +30,12 @@ Conventions:
   on first use.  A wrapper launches its kernel for CUDA tensors (raising if
   the build or launch fails) and runs its plain PyTorch version only for
   CPU tensors.
-- the package never imports ``jax``; it shares only the JAX package's
-  jax-free host modules (event schedulers, breakpoint lanes, WAV I/O, the
-  loader of the C++ host runtime).
+- the package imports nothing of the JAX package and no ``jax``.  It keeps
+  its own copies of the host modules it needs, each where the JAX package
+  has the original (``events/schedulers.py``, ``utils/breakpoints.py``,
+  ``utils/io.py`` with ``utils/wavcodec.py``), and its own loader of the
+  C++ host runtime ``native/ast_runtime.cpp`` (``utils/native_rt.py``),
+  the one source it shares.
 """
 
 __version__ = "0.1.0"

@@ -25,11 +25,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from audio_suite_tpu.events.schedulers import generate_event_times
-from audio_suite_tpu.utils.breakpoints import (eval_breakpoints_vec,
-                                               parse_breakpoints)
-
+from ..events.schedulers import generate_event_times
 from ..ops import envelopes, generators, overlap_add, space, spectral
+from ..utils.breakpoints import eval_breakpoints_vec, parse_breakpoints
 
 GEN_MODES = (
     "Gaussian click", "Dust impulses", "Noise burst", "Skewed transient",

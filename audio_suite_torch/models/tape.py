@@ -28,10 +28,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from audio_suite_tpu.utils import io as audio_io
-
 from ..ops import detmath, fixq, varispeed
 from ..ops.varispeed import _QUEUE6, TapeConsts
+from ..utils import io as audio_io
 from ..utils import native_rt
 
 

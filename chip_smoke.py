@@ -19,13 +19,15 @@ Phases:
 2. build every kernel of both paths from the sources in this checkout, one
    nvcc per source, all started together;
 3. Microsound: the overlap-add kernel against its plain PyTorch version at
-   the render's shapes (bit-equal, timed with CUDA events); the render
+   the render's shapes (bit-equal), timed beside the plain version and the
+   one-call yardstick ``index_add_``, with its bound; the render
    through ``models.microsound.render`` with every kernel launch counted;
    output checks; the float render bit-equal to one made with the plain
    overlap-add; the smoke-size render on the card within -100 dBFS of the
    same render on the CPU; timing;
 4. tape: the lerp-read kernel against its plain version at the full-size
-   render's own positions (bit-equal, timed); the render through
+   render's own positions (bit-equal, timed, with its bound; no one
+   PyTorch call computes the read); the render through
    ``models.tape.render_tape`` and ``tape_table_render(out_i16=True)``
    with every kernel launch counted; output checks; the float render
    bit-equal to one made with the plain read; the smoke-size render on
@@ -34,11 +36,23 @@ Phases:
    duplication), the render's device time and a fresh-program render.
 
 Every kernel's launch count is set to 0 just before a path is driven and
-read just after it.
+read just after it.  A kernel is timed twice.  Warm (its ``ms``, the
+in-render figure): one CUDA event pair around a run of back-to-back
+calls, divided by their count, the median over several runs; nothing is
+flushed between the calls, so the L2 stays warm, as in the render, where
+the windows of the overlap-add have just been written.  L2 flushed
+(``ms_l2_flushed``): a 256 MiB read before each call evicts the L2, and
+one event pair around each call; the median.  A plain version is timed
+with one event pair per call, the gaps between its launches included.
+A kernel's bound is the larger of its bytes (each input read once, each
+output written once) over the 3.35 TB/s of device memory and its f32
+operations over 67 TFLOP/s; the flushed time is the one that faces that
+memory rate.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it holds the card's name and power limit from nvidia-smi, and
-the one before that the kernels' table as JSON.  Imports no JAX.
+the one before that the kernels' table as JSON.  Imports nothing of JAX or
+of the JAX package.
 """
 import json
 import os
@@ -55,7 +69,13 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 SECONDS = 4.0          # audio length of the full-size render
 TIMED_RENDERS = 7
-TIMED_KERNEL_RUNS = 20
+TIMED_KERNEL_RUNS = 7      # event-pair runs per kernel time (their median)
+KERNEL_LAUNCHES = 50       # back-to-back launches per run
+SLEEP_CYCLES = 10_000_000  # ~5 ms at the H100's clock: longer than the host
+#                            takes to enqueue one run of launches
+FLUSH_BYTES = 256 << 20    # read before each L2-flushed call (L2: 50 MB)
+HBM_BYTES_S = 3.35e12      # H100 SXM device memory rate
+F32_FLOP_S = 67e12         # H100 SXM f32 rate outside the tensor cores
 KERNELS = ("overlap_add", "lerp_read")
 TAPE_SECONDS = 180.0   # bench config 1's tape and target length
 TAPE_FRAMES = 8745204  # its output frames after the retime
@@ -101,6 +121,34 @@ def config1(seconds: float):
     return audio, p, tape.section_render_length(p, n)
 
 
+def config3_oa_inputs(dev):
+    """The overlap-add's shapes and starts in the full-size config-3 render
+    (one chunk of E events), with seeded random windows and base buffer:
+    (E, Lw, N, starts, vals, base)."""
+    from audio_suite_torch.models import microsound as ms
+    from audio_suite_torch.ops import overlap_add as oa
+    p, ir = config3(full=True)
+    prog = ms.build_program(p, ir_audio=ir)
+    E = ms._event_chunk(prog["E"], prog["L"])
+    (chunk,) = ms._chunk_events(prog, E)
+    Lw = ms.chain_cfg(p, prog).oa_win
+    N = oa.ring_out_len(prog["out_n"], prog["L"])
+    rng = np.random.default_rng(3)
+    return (E, Lw, N, torch.tensor(chunk["oa_start"], device=dev),
+            torch.tensor(rng.standard_normal((E, Lw)).astype(np.float32),
+                         device=dev),
+            torch.tensor(rng.standard_normal(N).astype(np.float32),
+                         device=dev))
+
+
+def smi(query: str) -> str:
+    """``nvidia-smi --query-gpu=<query>`` of card 0, as CSV."""
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                           "--format=csv,noheader", "-i", "0"],
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip()
+
+
 def reset_counts():
     from audio_suite_torch import kernels
     for k in KERNELS:
@@ -113,7 +161,9 @@ def read_counts() -> dict:
 
 
 def cuda_ms(fn, runs: int) -> float:
-    """Median device time of fn() in ms, one CUDA event pair per run."""
+    """Median device time of fn() in ms, one CUDA event pair per run,
+    after a warm-up call."""
+    fn()
     times = []
     for _ in range(runs):
         a = torch.cuda.Event(enable_timing=True)
@@ -126,6 +176,64 @@ def cuda_ms(fn, runs: int) -> float:
     return statistics.median(times)
 
 
+def kernel_ms(fn, runs: int, launches: int) -> float:
+    """Median device time of one fn() call in ms: one CUDA event pair
+    around ``launches`` back-to-back calls, divided by their count, over
+    ``runs`` runs after a warm-up call.  A sleep kernel holds the stream
+    while the host enqueues each run, so the calls run back to back on the
+    card and the time is the kernels', not the host's launch rate.
+    Nothing is flushed between the calls, so the L2 stays warm."""
+    fn()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        a.record()
+        for _ in range(launches):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    return statistics.median(times)
+
+
+def flushed_ms(fn, launches: int) -> float:
+    """Median device time of one fn() call in ms with the L2 flushed
+    before it: a read of FLUSH_BYTES before each of ``launches`` calls,
+    one CUDA event pair around each call, after a warm-up call.  A read
+    leaves the L2 holding clean lines, so no write-back of the flush
+    lands in the timed call.  A sleep kernel holds the stream while the
+    host enqueues them."""
+    scratch = torch.ones(FLUSH_BYTES // 4, device="cuda")
+    fn()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(launches)]
+    torch.cuda._sleep(SLEEP_CYCLES)
+    for a, b in pairs:
+        scratch.sum()
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the f32 operations over the f32 rate (published
+    H100 SXM peaks at 700 W)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / F32_FLOP_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def oa_index(starts, Lw: int, N: int):
+    """The flat int64 target index of every window sample, for the
+    ``index_add_`` yardstick."""
+    s = starts.long().clamp(0, N - Lw)
+    return (s[:, None] + torch.arange(Lw, device=s.device)).reshape(-1)
+
+
 def microsound_path(dev, card: str) -> dict:
     """Phase 3: the Microsound config-3 path; returns its kernel row."""
     from audio_suite_torch import kernels
@@ -135,17 +243,9 @@ def microsound_path(dev, card: str) -> dict:
     # kernel vs plain at the render's OA shapes
     p, ir = config3(full=True)
     prog = ms.build_program(p, ir_audio=ir)
-    ec = ms._event_chunk(prog["E"], prog["L"])
     cfg = ms.chain_cfg(p, prog)
-    (chunk,) = ms._chunk_events(prog, ec)
-    E, Lw = ec, cfg.oa_win
-    N = oa.ring_out_len(prog["out_n"], prog["L"])
-    starts = torch.tensor(chunk["oa_start"], device=dev)
-    rng = np.random.default_rng(3)
-    vals = torch.tensor(rng.standard_normal((E, Lw)).astype(np.float32),
-                        device=dev)
-    base = torch.tensor(rng.standard_normal(N).astype(np.float32),
-                        device=dev)
+    (chunk,) = ms._chunk_events(prog, ms._event_chunk(prog["E"], prog["L"]))
+    E, Lw, N, starts, vals, base = config3_oa_inputs(dev)
     assert bool((starts[1:] < starts[:-1]).any()), "starts are sorted"
     want = oa.overlap_add_plain(base.clone(), vals, starts)
     got = kernels.overlap_add(base.clone(), vals, starts)
@@ -154,20 +254,37 @@ def microsound_path(dev, card: str) -> dict:
     if not torch.equal(got, want):
         raise AssertionError(f"overlap_add kernel differs from its plain "
                              f"version: max |err| {oa_err}")
+    idx = oa_index(starts, Lw, N)
+    lib_err = (base.clone().index_add_(0, idx, vals.view(-1)) - want) \
+        .abs().max().item()
+    # warm: back to back on one buffer, the windows stay in L2, as in the
+    # render, where the grain chain has just written them
     buf = base.clone()
-    kernel_ms = cuda_ms(lambda: kernels.overlap_add(buf, vals, starts),
-                        TIMED_KERNEL_RUNS)
+    oa_ms = kernel_ms(lambda: kernels.overlap_add(buf, vals, starts),
+                      TIMED_KERNEL_RUNS, KERNEL_LAUNCHES)
+    cold_ms = flushed_ms(lambda: kernels.overlap_add(buf, vals, starts),
+                         KERNEL_LAUNCHES)
     plain_ms = cuda_ms(lambda: oa.overlap_add_plain(buf, vals, starts),
                        TIMED_KERNEL_RUNS)
-    print(f"overlap_add: E {E} Lw {Lw} N {N}: bit-equal to plain; "
-          f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms "
-          f"(median of {TIMED_KERNEL_RUNS}) {card}", flush=True)
+    library_ms = kernel_ms(lambda: buf.index_add_(0, idx, vals.view(-1)),
+                           TIMED_KERNEL_RUNS, KERNEL_LAUNCHES)
+    bound, bound_by = bound_ms(4 * (vals.numel() + starts.numel() + 2 * N),
+                               vals.numel())
+    print(f"overlap_add: E {E} Lw {Lw} N {N}: bit-equal to plain; kernel "
+          f"L2 flushed {cold_ms:.4f} ms ({bound / cold_ms:.1%} of its "
+          f"{bound:.4f} ms bound by {bound_by} at the memory rate); warm "
+          f"{oa_ms:.4f} ms (the in-render figure: the L2 serves part of "
+          f"the bytes, so its {bound / oa_ms:.1%} of that bound overstates"
+          f"); plain {plain_ms:.4f} ms (one event pair per call); "
+          f"index_add_ warm {library_ms:.4f} ms (max |err| vs plain "
+          f"{lib_err:.3g}, for information) {card}", flush=True)
 
-    # the main path, every launch counted
+    # the main path, every launch counted: one render
     reset_counts()
     y16, meta = ms.render(p, ir_audio=ir, device=dev, pcm16=True)
     torch.cuda.synchronize()
     launches = read_counts()
+    renders = 1
     out_n = int(round(SECONDS * p.base_sr))
     if tuple(y16.shape) != (out_n, 2) or y16.dtype != torch.int16:
         raise AssertionError(f"render gave {tuple(y16.shape)} {y16.dtype}")
@@ -229,8 +346,11 @@ def microsound_path(dev, card: str) -> dict:
     return {"name": "overlap_add", "route": "cuda",
             "source": "audio_suite_torch/kernels/overlap_add.cu",
             "replaces": "audio_suite_tpu/ops/pallas_oa.py:153",
-            "launches": launches["overlap_add"], "max_abs_err": oa_err,
-            "ms": kernel_ms, "plain_ms": plain_ms}
+            "launches": launches["overlap_add"],
+            "launches_per_render": launches["overlap_add"] / renders,
+            "max_abs_err": oa_err, "ms": oa_ms, "ms_l2_flushed": cold_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 def tape_path(dev, card: str) -> dict:
@@ -271,13 +391,22 @@ def tape_path(dev, card: str) -> dict:
     if not torch.equal(got, want):
         raise AssertionError(f"lerp_read kernel differs from its plain "
                              f"version: max |err| {lr_err}")
-    kernel_ms = cuda_ms(lambda: kernels.lerp_read(adev, idx0, fr),
-                        TIMED_KERNEL_RUNS)
+    lr_ms = kernel_ms(lambda: kernels.lerp_read(adev, idx0, fr),
+                      TIMED_KERNEL_RUNS, KERNEL_LAUNCHES)
+    cold_ms = flushed_ms(lambda: kernels.lerp_read(adev, idx0, fr),
+                         KERNEL_LAUNCHES)
     plain_ms = cuda_ms(lambda: lr.lerp_read_plain(adev, idx0, fr),
                        TIMED_KERNEL_RUNS)
+    T = idx0.numel()
+    bound, bound_by = bound_ms(4 * (adev.numel() + 3 * T), 4 * T)
     print(f"lerp_read: n {len(audio)} T {frames}: bit-equal to plain; "
-          f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms "
-          f"(median of {TIMED_KERNEL_RUNS}) {card}", flush=True)
+          f"kernel warm {lr_ms:.4f} ms ({bound / lr_ms:.1%} of its "
+          f"{bound:.4f} ms bound by {bound_by}), L2 flushed {cold_ms:.4f} "
+          f"ms ({bound / cold_ms:.1%}); plain {plain_ms:.4f} ms (one event "
+          f"pair per call) {card}", flush=True)
+    print("lerp_read: no library time: no one PyTorch call computes the "
+          "read (grid_sample wants normalised float32 coordinates, which "
+          "cannot address 8.64 M samples to a fraction)", flush=True)
 
     # the main path, every launch counted: the default render and the
     # bench's PCM16 render of the cached program
@@ -286,6 +415,7 @@ def tape_path(dev, card: str) -> dict:
     cached = tape.build_tape_program_cached(adev, p, frames, device=dev)
     y16, final = tape.tape_table_render(cached, out_i16=True)
     launches = read_counts()
+    renders = 2
     if y.shape != (frames,) or y.dtype != np.float32:
         raise AssertionError(f"render gave {y.shape} {y.dtype}")
     if y16.shape != (frames,) or y16.dtype != np.int16:
@@ -353,8 +483,11 @@ def tape_path(dev, card: str) -> dict:
     return {"name": "lerp_read", "route": "cuda",
             "source": "audio_suite_torch/kernels/lerp_read.cu",
             "replaces": "audio_suite_tpu/ops/pallas_read.py:94",
-            "launches": launches["lerp_read"], "max_abs_err": lr_err,
-            "ms": kernel_ms, "plain_ms": plain_ms}
+            "launches": launches["lerp_read"],
+            "launches_per_render": launches["lerp_read"] / renders,
+            "max_abs_err": lr_err, "ms": lr_ms, "ms_l2_flushed": cold_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": None}
 
 
 def main() -> int:
@@ -367,11 +500,8 @@ def main() -> int:
     from audio_suite_torch import kernels
 
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader", "-i", "0"],
-                         capture_output=True, text=True, check=True,
-                         timeout=60).stdout.strip()
-    card = f"[{smi}]"
+    name_limit = smi("name,power.limit")
+    card = f"[{name_limit}]"
     print(f"probe: torch {torch.__version__} cuda {torch.version.cuda} "
           f"on {torch.cuda.get_device_name(0)} {card}", flush=True)
 
@@ -388,7 +518,7 @@ def main() -> int:
     rows = [microsound_path(dev, card), tape_path(dev, card)]
 
     print(json.dumps({"kernels": rows}))
-    print(smi)
+    print(name_limit)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -58,6 +58,39 @@ def test_overlap_add_kernel_bit_equal_to_plain(cuda, E, Lw, N):
     assert torch.equal(got.cpu(), want)
 
 
+def _oa_edge_starts(case, rng, E, Lw, N):
+    if case == "stack":              # half the events at one start, as the
+        s = rng.integers(0, N - Lw, E)   # render's padding events are
+        s[E // 2:] = N - Lw
+        return s
+    if case == "over64":             # every tile covered by > 64 events
+        return rng.integers(0, N - Lw, E)
+    if case == "descending":
+        return np.sort(rng.integers(-Lw, N, E))[::-1]
+    if case == "clamped":            # every start past N - Lw
+        return rng.integers(N - Lw + 1, N + Lw, E)
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case,E,Lw,N", [
+    ("stack", 96, 4096, 65536),
+    ("over64", 400, 8192, 32768),
+    ("descending", 200, 2048, 131072),
+    ("clamped", 50, 3000, 40000),
+])
+def test_overlap_add_kernel_bit_equal_to_plain_edge_cases(cuda, case, E, Lw,
+                                                          N):
+    rng = np.random.default_rng(len(case) + E)
+    vals = torch.tensor(rng.standard_normal((E, Lw)).astype(np.float32))
+    starts = torch.tensor(_oa_edge_starts(case, rng, E, Lw, N)
+                          .astype(np.int32))
+    base = torch.tensor(rng.standard_normal(N).astype(np.float32))
+    want = oa.overlap_add_plain(base.clone(), vals, starts)
+    got = oa.overlap_add(base.to(cuda), vals.to(cuda), starts.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
 def test_overlap_add_kernel_rejects_what_it_does_not_take(cuda):
     vals, starts, base = _oa_case(0, 8, 256, 4096)
     out = base.to(cuda)

@@ -7,7 +7,7 @@
   through ``program_to_device``;
 - the ``microsound`` golden fingerprint of tests/test_goldens.py;
 - the unported paths raise NotImplementedError;
-- the package imports and renders with jax blocked.
+- the package imports and renders with jax and the JAX package blocked.
 """
 import json
 import os
@@ -173,6 +173,7 @@ def test_unported_paths_raise(change, where):
 _JAX_BLOCKED = """
 import sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
+sys.modules["audio_suite_tpu"] = None   # and so does the JAX package
 sys.path.insert(0, {repo!r})
 import numpy as np, torch
 torch.set_num_threads(1)
@@ -182,8 +183,8 @@ y, meta = ms.render(p, ir_audio=np.asarray({ir!r}, np.float32),
                     device="cpu", pcm16=True)
 assert y.shape == (24000, 2) and y.dtype == torch.int16, y.shape
 assert int(y.abs().max()) > 1000
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
-               if sys.modules[m] is not None)
+assert not any(m.split(".")[0] in ("jax", "audio_suite_tpu")
+               for m in sys.modules if sys.modules[m] is not None)
 print("ok")
 """
 

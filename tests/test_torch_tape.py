@@ -17,7 +17,8 @@ Same inputs, made with numpy from a seed, through both packages:
 - bench config 1 at its smoke size: the float render within -120 dBFS of
   JAX's ``tape_table_render`` and PCM16 within 1 LSB;
 - the ``tape`` and ``tape_splicefx`` golden fingerprints;
-- the unported paths raise, and the package renders with jax blocked.
+- the unported paths raise, and the package renders with jax and the
+  JAX package blocked.
 """
 import dataclasses
 import json
@@ -432,17 +433,22 @@ def test_unported_paths_raise(what):
                                   prog["consts"], frames, with_pieces=True)
 
 
-def test_missing_native_library_raises(monkeypatch):
+def test_missing_native_library_raises(monkeypatch, tmp_path):
     audio, p, frames = _golden_tape(tt)
-    monkeypatch.setattr(tnrt, "get_lib", lambda: None)
+    bad = tmp_path / "broken.cpp"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(tnrt, "_SRC", str(bad))
+    monkeypatch.setattr(tnrt, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(tnrt, "_lib", None)
     prog = tt.build_tape_program(audio, p, frames, device="cpu")
-    with pytest.raises(RuntimeError, match="native tape table builder"):
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed to build"):
         tt.tape_table_render(prog)
 
 
 _JAX_BLOCKED = """
 import sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
+sys.modules["audio_suite_tpu"] = None   # and so does the JAX package
 sys.path.insert(0, {repo!r})
 import numpy as np, torch
 torch.set_num_threads(1)
@@ -465,8 +471,8 @@ prog = tape.build_tape_program(audio, p, frames, device="cpu")
 y, _ = tape.tape_table_render(prog, out_i16=True, stereo=True)
 assert y.shape == (194338, 2) and y.dtype == np.int16, y.shape
 assert int(np.abs(y).max()) > 10000
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
-               if sys.modules[m] is not None)
+assert not any(m.split(".")[0] in ("jax", "audio_suite_tpu")
+               for m in sys.modules if sys.modules[m] is not None)
 print("ok")
 """
 
