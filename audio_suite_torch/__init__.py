@@ -16,14 +16,20 @@ Ported so far:
   configuration): host control tables from the shared C++ runtime ->
   wow/flutter synthesis, speed runs, segmented fixed-point positions,
   section read index, anti-click and splice gains -> the linear read ->
-  clip, PCM16.
+  clip, PCM16;
+- the Pattern Lab render (the bench's four-generator configuration):
+  host pattern generators -> note batch -> length buckets -> FM and PSG
+  voice bank, a batch of notes per bucket -> ordered overlap-add ->
+  tanh master bus -> PCM16.
 
 Paths outside those slices raise ``NotImplementedError``.
 
 Conventions:
 
-- plain functions on tensors; every entry point takes an explicit
-  ``device`` and nothing here probes devices at import time;
+- plain functions on tensors; every entry point takes a ``device``,
+  ``"cuda"`` unless the caller passes another (without CUDA that default
+  raises: nothing falls back to the CPU), and nothing here probes
+  devices at import time;
 - randomness is the counter-hash noise of ``ops/noise.py`` (bit-exact with
   the JAX package), so no ``torch.Generator`` is involved;
 - hand-written CUDA kernels live in ``kernels/`` and are built with ``nvcc``
@@ -32,8 +38,9 @@ Conventions:
   CPU tensors.
 - the package imports nothing of the JAX package and no ``jax``.  It keeps
   its own copies of the host modules it needs, each where the JAX package
-  has the original (``events/schedulers.py``, ``utils/breakpoints.py``,
-  ``utils/io.py`` with ``utils/wavcodec.py``), and its own loader of the
+  has the original (``events/schedulers.py``, ``events/notes.py``,
+  ``utils/breakpoints.py``, ``utils/music.py``, ``utils/io.py`` with
+  ``utils/wavcodec.py``), and its own loader of the
   C++ host runtime ``native/ast_runtime.cpp`` (``utils/native_rt.py``),
   the one source it shares.
 """

@@ -528,7 +528,7 @@ def fx_cfg(params: MicrosoundParams, out_n: int, ir_on: bool,
 
 
 def render_program(params: MicrosoundParams, prog: dict, space_kernels,
-                   *, device, event_chunk: int | None = None,
+                   *, device="cuda", event_chunk: int | None = None,
                    pcm16: bool = False):
     """Render a built program: ``prog`` from build_program (this package's
     or the JAX package's) and ``space_kernels`` = (er_kernel, ir_kernel,
@@ -552,7 +552,7 @@ def render_program(params: MicrosoundParams, prog: dict, space_kernels,
     return stereo, meta
 
 
-def render(params: MicrosoundParams, ir_audio=None, *, device,
+def render(params: MicrosoundParams, ir_audio=None, *, device="cuda",
            event_chunk: int | None = None, pcm16: bool = False):
     """Full Microsound render (microsound.py:1124) on ``device``: returns
     (stereo tensor [out_n, 2] on the device — f32, or int16 PCM with

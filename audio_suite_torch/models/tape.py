@@ -134,7 +134,7 @@ def splice_envelope(env_len: int = 256) -> np.ndarray:
 
 
 def build_tape_program(audio, params: TapeParams, num_frames: int, *,
-                       device) -> dict:
+                       device="cuda") -> dict:
     """Every array and constant the render needs: host NumPy tables, a
     TapeConsts, and the mono f32 tape on ``device`` (a tensor already
     there is used as is)."""
@@ -197,7 +197,7 @@ _TAPE_PROG_CACHE: OrderedDict = OrderedDict()
 
 
 def build_tape_program_cached(audio, params: TapeParams, num_frames: int, *,
-                              device) -> dict:
+                              device="cuda") -> dict:
     """build_tape_program memoized on (audio identity, device, params
     content, num_frames), LRU-bounded at 8 programs, so that re-renders of
     an unchanged tape and parameters skip the host build and, through
@@ -275,7 +275,7 @@ def tape_table_render(prog: dict, out_i16: bool = False,
 
 
 def render_tape(audio, params: TapeParams,
-                num_frames: Optional[int] = None, *, device,
+                num_frames: Optional[int] = None, *, device="cuda",
                 engine: str = "device",
                 interp: str = "linear") -> np.ndarray:
     """Offline render of ``num_frames`` output samples (default: one full
@@ -304,7 +304,7 @@ class TapeTrace:
 
 
 def render_to_wav(in_path: str, out_path: str, params: TapeParams,
-                  num_frames: Optional[int] = None, *, device):
+                  num_frames: Optional[int] = None, *, device="cuda"):
     """Load -> render -> save as PCM_16 (Tape…py:302-345, 342)."""
     audio, sr = audio_io.load_wav_mono(in_path)
     if sr != params.sample_rate:

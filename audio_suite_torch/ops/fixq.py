@@ -1,5 +1,6 @@
-"""Exact fixed-point tape-position arithmetic — port of
-audio_suite_tpu/ops/fixq.py (the parts the tape render uses).
+"""Exact fixed-point tape-position arithmetic and the 12-bit significand
+splits — port of audio_suite_tpu/ops/fixq.py (the parts the tape render
+and the Pattern Lab voices use).
 
 A position is ``whole + frac * 2**-POS_FRAC_BITS`` with int32 ``whole`` and
 ``frac`` in ``[0, POS_ONE)``; increments are quantized through single-
@@ -58,6 +59,24 @@ def round_sig12_np(x):
     b = x.view(np.int32)
     b = ((b + np.int32(_SIG_ROUND)) & np.int32(_SIG_MASK)).astype(np.int32)
     return b.view(np.float32)
+
+
+def sig12_pair(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Split f32 x into (hi, lo) 12-bit-significand pieces with
+    hi + lo ≈ x to ~24 bits: hi = round_sig12(x), lo = round_sig12(x - hi)
+    (the residual is exact).  A product of two pieces is exact in f32, so
+    sums of piece products round alike fused or unfused."""
+    x = x.to(torch.float32)
+    hi = round_sig12(x)
+    lo = round_sig12(x - hi)
+    return hi, lo
+
+
+def sig12_pair_np(x):
+    x = np.asarray(x, np.float32)
+    hi = round_sig12_np(x)
+    lo = round_sig12_np((x - hi).astype(np.float32))
+    return hi, lo
 
 
 def segmented_pos_cumsum(inc: torch.Tensor, reset: torch.Tensor,

@@ -3,20 +3,23 @@
 
     python3 chip_smoke.py
 
-Drives audio_suite_torch's two ported paths at full size on the card, in
-phases; any failure raises and the exit code is non-zero.  The paths:
+Drives audio_suite_torch's three ported paths at full size on the card,
+in phases; any failure raises and the exit code is non-zero.  The paths:
 
 - Microsound: the bench's high-rate transient-field configuration
   (bench.py:343-354: 192 kHz, 4 s, 270 noise-burst grains, x100 time
   unfold, x4 spectral stretch, seeded IR);
 - tape: bench config 1 (bench.py:157-265: a 180 s 48 kHz tape chopped into
   six sections at mixed speeds, three reversed, retimed to 180 s; 8 745 204
-  output frames), the default device render.
+  output frames), the default device render;
+- Pattern Lab: bench config 4 (bench.py:430-447: 44.1 kHz, 8 s, bpm 128,
+  seed 9, the four builtin generators: 333 events, 326 notes in 14
+  buckets), rendered through ``models.patternlab.render``.
 
 Phases:
 
 1. probe: a CUDA device is required (there is no CPU fallback);
-2. build every kernel of both paths from the sources in this checkout, one
+2. build every kernel of the paths from the sources in this checkout, one
    nvcc per source, all started together;
 3. Microsound: the overlap-add kernel against its plain PyTorch version at
    the render's shapes (bit-equal), timed beside the plain version and the
@@ -33,7 +36,17 @@ Phases:
    bit-equal to one made with the plain read; the smoke-size render on
    the card within -120 dBFS of the same render on the CPU; timing of the
    bench's protocol (cached program, PCM16 render, pull, host stereo
-   duplication), the render's device time and a fresh-program render.
+   duplication), the render's device time and a fresh-program render;
+5. Pattern Lab: the overlap-add kernel against its plain version at
+   config 4's largest bucket (E 62, Lw 32 768, N 385 568, the render's own
+   starts; bit-equal, timed with its bound, the plain version and
+   ``index_add_``); the render with every launch counted (one overlap-add
+   per bucket: 14); output checks; the float render bit-equal to one made
+   with the plain overlap-add; the smoke-size render (2 s) on the card
+   within -100 dBFS of the same render on the CPU; timing of the bench's
+   ``run()`` (memoized prepare, PCM16 render, pull), the render's device
+   time, a fresh prepare, and one ``torch.profiler`` window (device events
+   and device-busy time per render, the top kernels).
 
 Every kernel's launch count is set to 0 just before a path is driven and
 read just after it.  A kernel is timed twice.  Warm (its ``ms``, the
@@ -79,6 +92,8 @@ F32_FLOP_S = 67e12         # H100 SXM f32 rate outside the tensor cores
 KERNELS = ("overlap_add", "lerp_read")
 TAPE_SECONDS = 180.0   # bench config 1's tape and target length
 TAPE_FRAMES = 8745204  # its output frames after the retime
+PL_SECONDS = 8.0       # bench config 4's render length
+PROFILED_RENDERS = 3   # renders in the Pattern Lab profiler window
 
 
 def config3(full: bool):
@@ -139,6 +154,17 @@ def config3_oa_inputs(dev):
                          device=dev),
             torch.tensor(rng.standard_normal(N).astype(np.float32),
                          device=dev))
+
+
+def config4(seconds: float):
+    """bench.py:430-447 (``seconds`` 8: _SMOKE off; 2: its smoke size): the
+    four builtin generators' events and the RenderConfig."""
+    from audio_suite_torch.models import patternlab as pl
+    cfg = pl.RenderConfig(sample_rate=44100, seconds=seconds, bpm=128,
+                          seed=9)
+    events = [e for g in pl.list_generators() if g != "Python Script"
+              for e in pl.generate(g, cfg)]
+    return events, cfg
 
 
 def smi(query: str) -> str:
@@ -217,6 +243,44 @@ def flushed_ms(fn, launches: int) -> float:
         b.record()
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def profile_renders(fn, renders: int) -> dict:
+    """One ``torch.profiler`` window over ``renders`` calls of fn(): device
+    events (kernels, copies, sets) and device-busy ms per call, the union
+    of the device events' intervals, and the top kernels by device time.
+    Empty if the profiler saw no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(renders):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not evs:
+        return {}
+    spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    by_name: dict = {}
+    for e in evs:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"events_per_render": len(evs) / renders,
+            "busy_ms_per_render": busy / 1e3 / renders,
+            "top": [(name.replace("at::native::", "")[:160],
+                     t / 1e3 / renders, c / renders)
+                    for name, (t, c) in top]}
 
 
 def bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
@@ -490,6 +554,147 @@ def tape_path(dev, card: str) -> dict:
             "library_ms": None}
 
 
+def patternlab_path(dev, card: str) -> dict:
+    """Phase 5: the Pattern Lab config-4 path; returns the overlap-add's
+    figures at config 4's shapes."""
+    from audio_suite_torch import kernels
+    from audio_suite_torch.models import patternlab as pl
+    from audio_suite_torch.ops import overlap_add as oa
+
+    events, cfg = config4(PL_SECONDS)
+    synth = pl.MegaDriveInspiredSynth(cfg.sample_rate, seed=cfg.seed,
+                                      device=dev)
+    ev = pl.apply_time_ops(events, cfg)
+    n_total, spec, packs = synth.prepare_np(ev, cfg.seconds)
+    N = n_total + max(L for (_p, L, _a, _v, _c) in spec)
+    print(f"patternlab: {len(events)} events -> "
+          f"{sum(c for (_p, _L, _a, _v, c) in spec)} notes in {len(spec)} "
+          f"buckets, n_total {n_total}, OA buffer {N}", flush=True)
+
+    # kernel vs plain at the largest bucket, with the render's own starts
+    off, big = {"fmi": 0, "pgi": 0}, None
+    for (is_psg, L, _alg, _vib, count) in spec:
+        k = "pgi" if is_psg else "fmi"
+        if big is None or count * L > big[0] * big[1]:
+            big = (count, L, packs[k][off[k]: off[k] + count, 1])
+        off[k] += count
+    E, Lw, starts = big
+    rng = np.random.default_rng(4)
+    starts = torch.tensor(starts, device=dev)
+    vals = torch.tensor(rng.standard_normal((E, Lw)).astype(np.float32),
+                        device=dev)
+    base = torch.tensor(rng.standard_normal(N).astype(np.float32),
+                        device=dev)
+    want = oa.overlap_add_plain(base.clone(), vals, starts)
+    got = kernels.overlap_add(base.clone(), vals, starts)
+    torch.cuda.synchronize()
+    oa_err = (got - want).abs().max().item()
+    if not torch.equal(got, want):
+        raise AssertionError(f"overlap_add kernel differs from its plain "
+                             f"version at config 4: max |err| {oa_err}")
+    idx = oa_index(starts, Lw, N)
+    buf = base.clone()
+    oa_ms = kernel_ms(lambda: kernels.overlap_add(buf, vals, starts),
+                      TIMED_KERNEL_RUNS, KERNEL_LAUNCHES)
+    cold_ms = flushed_ms(lambda: kernels.overlap_add(buf, vals, starts),
+                         KERNEL_LAUNCHES)
+    plain_ms = cuda_ms(lambda: oa.overlap_add_plain(buf, vals, starts),
+                       TIMED_KERNEL_RUNS)
+    library_ms = kernel_ms(lambda: buf.index_add_(0, idx, vals.view(-1)),
+                           TIMED_KERNEL_RUNS, KERNEL_LAUNCHES)
+    nbytes = 4 * (vals.numel() + starts.numel() + 2 * N)
+    bound, bound_by = bound_ms(nbytes, vals.numel())
+    print(f"overlap_add: E {E} Lw {Lw} N {N} ({nbytes / 1e6:.2f} MB): "
+          f"bit-equal to plain; kernel L2 flushed {cold_ms:.4f} ms "
+          f"({bound / cold_ms:.1%} of its {bound:.4f} ms bound by "
+          f"{bound_by}); warm {oa_ms:.4f} ms; plain {plain_ms:.4f} ms "
+          f"(one event pair per call); index_add_ warm {library_ms:.4f} ms "
+          f"{card}", flush=True)
+
+    # the main path, every launch counted: the bench's render
+    reset_counts()
+    y16, _ = pl.render(events, cfg, pcm16=True, device=dev)
+    launches = read_counts()
+    if y16.shape != (n_total,) or y16.dtype != np.int16:
+        raise AssertionError(f"render gave {y16.shape} {y16.dtype}")
+    peak16 = int(np.abs(y16.astype(np.int32)).max())
+    if peak16 < 1000:
+        raise AssertionError(f"render is near silent: peak {peak16}")
+    if launches["overlap_add"] != len(spec):
+        raise AssertionError(f"{launches['overlap_add']} overlap_add "
+                             f"launches for {len(spec)} buckets")
+    print(f"render: {n_total} samples int16, peak {peak16}; kernel "
+          f"launches {launches} ({len(spec)} buckets)", flush=True)
+
+    prep = synth.prepare(ev, cfg.seconds)
+    y_kernel = synth.render_prepared(prep, master_gain=cfg.master_gain,
+                                     device_out=True)
+    with mock.patch.object(oa, "overlap_add", oa.overlap_add_plain):
+        y_plain = synth.render_prepared(prep, master_gain=cfg.master_gain,
+                                        device_out=True)
+    if not torch.equal(y_kernel, y_plain):
+        raise AssertionError("float render with the kernel differs from the "
+                             "render with the plain overlap-add")
+    if not bool(torch.isfinite(y_kernel).all()):
+        raise AssertionError("non-finite samples in the float render")
+    ev_s, cfg_s = config4(2.0)
+    ys_gpu, _ = pl.render(ev_s, cfg_s, device=dev)
+    ys_cpu, _ = pl.render(ev_s, cfg_s, device="cpu")
+    dmax = np.abs(ys_gpu.astype(np.float64) - ys_cpu).max()
+    dev_db = 20 * np.log10(max(dmax, 1e-300))
+    if dev_db > -100.0:
+        raise AssertionError(f"smoke render on the card is {dev_db:.1f} "
+                             "dBFS from the CPU render")
+    print(f"check: float render bit-equal with plain OA; smoke render card "
+          f"vs CPU {dev_db:.2f} dBFS (bit-equal: "
+          f"{bool(np.array_equal(ys_gpu, ys_cpu))})", flush=True)
+
+    # timing: the bench's run() (bench.py:444-447, the prepare memoized),
+    # the render's device time, a fresh prepare, one profiler window
+    walls = []
+    for _ in range(TIMED_RENDERS):
+        t0 = time.perf_counter()
+        pl.render(events, cfg, pcm16=True, device=dev)
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+
+    def device_render():
+        return synth.render_prepared(prep, master_gain=cfg.master_gain,
+                                     device_out=True, pcm16=True)
+
+    device_ms = cuda_ms(device_render, TIMED_RENDERS)
+    prep_s = []
+    for _ in range(TIMED_RENDERS):
+        t0 = time.perf_counter()
+        synth.prepare(ev, cfg.seconds)
+        torch.cuda.synchronize()
+        prep_s.append(time.perf_counter() - t0)
+    prof = profile_renders(device_render, PROFILED_RENDERS)
+    print(f"timing: bench run() wall median {wall * 1e3:.2f} ms of "
+          f"{TIMED_RENDERS} (memoized prepare, PCM16 render, pull) -> "
+          f"realtime x{cfg.seconds / wall:.1f}; device {device_ms:.3f} ms "
+          f"(render_prepared, device_out, pcm16); fresh prepare median "
+          f"{statistics.median(prep_s) * 1e3:.2f} ms {card}", flush=True)
+    if prof:
+        print(f"profile ({PROFILED_RENDERS} renders): "
+              f"{prof['events_per_render']:.0f} device events per render, "
+              f"device-busy {prof['busy_ms_per_render']:.3f} ms per render "
+              f"({prof['busy_ms_per_render'] / device_ms:.1%} of the "
+              f"device time) {card}", flush=True)
+        for name, t, c in prof["top"]:
+            print(f"profile:   {t:.3f} ms {c:.0f}x {name}", flush=True)
+    else:
+        print("profile: the profiler saw no device event; launches and "
+              "busy time not measured", flush=True)
+
+    return {"launches": launches["overlap_add"],
+            "launches_per_render": launches["overlap_add"],
+            "shape": [E, Lw, N], "max_abs_err": oa_err, "ms": oa_ms,
+            "ms_l2_flushed": cold_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
 def main() -> int:
     # ---- 1. probe
     if not torch.cuda.is_available():
@@ -514,8 +719,16 @@ def main() -> int:
     print(f"build: {len(built)} kernels in {time.perf_counter() - t0:.2f} s",
           flush=True)
 
-    # ---- 3., 4. the paths
-    rows = [microsound_path(dev, card), tape_path(dev, card)]
+    # ---- 3., 4., 5. the paths; the overlap-add runs on two of them, so
+    # its row counts the launches of both and holds config 4's figures
+    oa_row = microsound_path(dev, card)
+    lr_row = tape_path(dev, card)
+    pl_oa = patternlab_path(dev, card)
+    oa_row["launches_by_path"] = {"microsound": oa_row["launches"],
+                                  "patternlab": pl_oa["launches"]}
+    oa_row["launches"] += pl_oa["launches"]
+    oa_row["config4"] = pl_oa
+    rows = [oa_row, lr_row]
 
     print(json.dumps({"kernels": rows}))
     print(name_limit)

@@ -197,3 +197,48 @@ def test_port_imports_nothing_of_the_jax_package(path):
             top = name.split(".")[0]
             assert top not in ("audio_suite_tpu", "jax", "jaxlib"), \
                 f"{os.path.relpath(path, REPO)}:{node.lineno} imports {name}"
+
+
+# every entry point of the port, old and new: (module, qualified name)
+_ENTRY_POINTS = [
+    ("microsound", "render"), ("microsound", "render_program"),
+    ("tape", "build_tape_program"), ("tape", "build_tape_program_cached"),
+    ("tape", "render_tape"), ("tape", "render_to_wav"),
+    ("patternlab", "render"), ("patternlab", "render_device"),
+    ("patternlab", "render_preset"), ("patternlab", "prepared_to_device"),
+    ("patternlab", "MegaDriveInspiredSynth"),
+]
+# not entry points: a helper that moves arrays to the device it is given,
+# and a record that holds its device
+_DEVICE_HELPERS = {("microsound", "program_to_device"),
+                   ("patternlab", "PreparedRender")}
+
+
+def _models():
+    import importlib
+    return {m: importlib.import_module(f"audio_suite_torch.models.{m}")
+            for m in ("microsound", "tape", "patternlab")}
+
+
+@pytest.mark.parametrize("mod,name", _ENTRY_POINTS,
+                         ids=lambda v: str(v))
+def test_entry_point_defaults_to_the_card(mod, name):
+    import inspect
+    sig = inspect.signature(getattr(_models()[mod], name))
+    assert sig.parameters["device"].default == "cuda"
+
+
+def test_every_model_function_with_a_device_is_an_entry_point():
+    import inspect
+    for mod, m in _models().items():
+        for name, obj in vars(m).items():
+            if (name.startswith("_") or not callable(obj)
+                    or getattr(obj, "__module__", None) != m.__name__):
+                continue
+            try:
+                params = inspect.signature(obj).parameters
+            except (TypeError, ValueError):
+                continue
+            if "device" in params:
+                assert ((mod, name) in _ENTRY_POINTS
+                        or (mod, name) in _DEVICE_HELPERS), (mod, name)

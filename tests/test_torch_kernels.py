@@ -12,6 +12,7 @@ import torch
 
 from audio_suite_torch import kernels
 from audio_suite_torch.models import microsound as ms
+from audio_suite_torch.models import patternlab as pl
 from audio_suite_torch.models import tape
 from audio_suite_torch.ops import lerp_read as lr
 from audio_suite_torch.ops import overlap_add as oa
@@ -88,6 +89,42 @@ def test_overlap_add_kernel_bit_equal_to_plain_edge_cases(cuda, case, E, Lw,
     want = oa.overlap_add_plain(base.clone(), vals, starts)
     got = oa.overlap_add(base.to(cuda), vals.to(cuda), starts.to(cuda))
     torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+def _config4_buckets():
+    """Bench config 4 at full size (bench.py:430-447): the render's
+    overlap-add buffer length and, per bucket, (E, Lw, starts)."""
+    cfg = pl.RenderConfig(sample_rate=44100, seconds=8.0, bpm=128, seed=9)
+    events = [e for g in pl.list_generators() if g != "Python Script"
+              for e in pl.generate(g, cfg)]
+    synth = pl.MegaDriveInspiredSynth(44100, seed=9, device="cpu")
+    n_total, spec, packs = synth.prepare_np(pl.apply_time_ops(events, cfg),
+                                            cfg.seconds)
+    buckets, off = [], {"fmi": 0, "pgi": 0}
+    for (is_psg, L, _alg, _vib, count) in spec:
+        k = "pgi" if is_psg else "fmi"
+        buckets.append((count, L, packs[k][off[k]: off[k] + count, 1]))
+        off[k] += count
+    return n_total + max(L for (_p, L, _a, _v, _c) in spec), buckets
+
+
+@pytest.mark.parametrize("bucket", range(14))
+def test_overlap_add_kernel_bit_equal_to_plain_config4(cuda, bucket):
+    """Every bucket of the full-size config-4 render, with its own starts:
+    E from 1 to 73, Lw from 2 048 to 32 768, N 385 568."""
+    N, buckets = _config4_buckets()
+    assert N == 385568 and len(buckets) == 14
+    E, Lw, starts = buckets[bucket]
+    rng = np.random.default_rng(bucket)
+    vals = torch.tensor(rng.standard_normal((E, Lw)).astype(np.float32))
+    base = torch.tensor(rng.standard_normal(N).astype(np.float32))
+    starts = torch.tensor(starts)
+    want = oa.overlap_add_plain(base.clone(), vals, starts)
+    n0 = kernels.overlap_add.launches
+    got = oa.overlap_add(base.to(cuda), vals.to(cuda), starts.to(cuda))
+    torch.cuda.synchronize()
+    assert kernels.overlap_add.launches == n0 + 1
     assert torch.equal(got.cpu(), want)
 
 
@@ -210,3 +247,19 @@ def test_tape_smoke_render_on_cuda_matches_cpu(cuda):
     assert kernels.lerp_read.launches == n0 + 1
     dev = np.abs(got.astype(np.float64) - want).max()
     assert 20 * np.log10(max(dev, 1e-300)) <= -120.0
+
+
+def test_patternlab_smoke_render_on_cuda_matches_cpu(cuda):
+    """Bench config 4 at its smoke size (2 s): one kernel launch per
+    bucket, and the card's render within -100 dBFS of the CPU's."""
+    cfg = pl.RenderConfig(sample_rate=44100, seconds=2.0, bpm=128, seed=9)
+    events = [e for g in pl.list_generators() if g != "Python Script"
+              for e in pl.generate(g, cfg)]
+    want, _ = pl.render(events, cfg, device="cpu")
+    synth = pl.MegaDriveInspiredSynth(44100, seed=9, device=cuda)
+    prep = synth.prepare(pl.apply_time_ops(events, cfg), cfg.seconds)
+    n0 = kernels.overlap_add.launches
+    got = synth.render_prepared(prep, master_gain=cfg.master_gain)
+    assert kernels.overlap_add.launches == n0 + len(prep.spec)
+    dev = np.abs(got.astype(np.float64) - want).max()
+    assert 20 * np.log10(max(dev, 1e-300)) <= -100.0
