@@ -12,11 +12,16 @@ Ported so far:
   end to end: host event program -> grain spectrum draw -> lowpass +
   spectral stretch -> ordered overlap-add -> ADSR, ER/IR convolution,
   stereo diffusion, soft clip, normalize, PCM16;
-- the tape engine's default render (the bench's chopped varispeed
+- the tape engine's device render (the bench's chopped varispeed
   configuration): host control tables from the shared C++ runtime ->
   wow/flutter synthesis, speed runs, segmented fixed-point positions,
-  section read index, anti-click and splice gains -> the linear read ->
-  clip, PCM16;
+  section read index, anti-click and splice gains -> the linear read (or
+  the 16-tap sinc read) -> clip, PCM16;
+- the scrub engine (the bench's multi-head gestural scrub): host gesture
+  trace and program -> per-sample increments (detmath LFOs, counter-noise
+  jitter) -> segmented fixed-point positions -> the wrap-around read of
+  one to three heads (linear, the kernel's multi-head form; or sinc),
+  per control segment -> dropout envelope, PCM16;
 - the Pattern Lab render (the bench's four-generator configuration):
   host pattern generators -> note batch -> length buckets -> FM and PSG
   voice bank, a batch of notes per bucket -> ordered overlap-add ->

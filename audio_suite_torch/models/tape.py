@@ -1,21 +1,23 @@
 """TapeTUC engine — port of audio_suite_tpu/models/tape.py.
 
-Ported slice: the default render, ``render_tape(..., engine="device",
-interp="linear")``, its ``render_to_wav`` entry point and the
-``tape_table_render`` outputs (mono f32, PCM16, a stereo duplicate):
+Ported slice: the device render, ``render_tape(..., engine="device")``
+with ``interp="linear"`` or ``"sinc"``, its ``render_to_wav`` entry point
+and the ``tape_table_render`` outputs (mono f32, PCM16, a stereo
+duplicate):
 
 - host: ``TapeParams``, sections, retime, the wow/flutter constants, the
   splice envelope and ``build_tape_program`` — NumPy, the same arrays as
   the JAX package — and the control tables from the shared C++ runtime
   (``utils/native_rt.py``), memoized on the program as ``prog["_tables"]``;
 - device: ``ops/varispeed.tape_device_render`` (positions, the linear read
-  through the CUDA kernel on the card, gain, clip, PCM16).
+  through the CUDA kernel on the card or the plain-PyTorch sinc read,
+  gain, clip, PCM16).
 
 The tape goes to the device once, when the program is built; a tensor
 passed as ``audio`` that already lies on the device is used as is.  The
-scan and segment engines, the sinc read, the trace renderer, beat
-detection and the undo stack raise ``NotImplementedError`` or are absent
-(``ROADMAP.md`` queue 1 item 6).
+scan and segment engines, the trace renderer, beat detection and the
+undo stack raise ``NotImplementedError`` or are absent (``ROADMAP.md``
+queue 1 item 6).
 """
 from __future__ import annotations
 

@@ -1,12 +1,22 @@
-"""Exact fixed-point tape-position arithmetic and the 12-bit significand
-splits — port of audio_suite_tpu/ops/fixq.py (the parts the tape render
-and the Pattern Lab voices use).
+"""Exact fixed-point tape-position arithmetic, the 12-bit significand
+splits and the fractional reads — port of audio_suite_tpu/ops/fixq.py
+(the parts the tape, scrub and Pattern Lab renders use).
 
 A position is ``whole + frac * 2**-POS_FRAC_BITS`` with int32 ``whole`` and
 ``frac`` in ``[0, POS_ONE)``; increments are quantized through single-
 rounding f32 ops, so every discrete decision is integer math and bit-
 identical to the JAX package and its NumPy twins (``*_np``, kept beside
 them).
+
+The reads: ``gather_linear_wrap`` (the scrub's two-tap wrap-around read,
+bit-equal to its NumPy twin; the scrub render itself reads through
+``ops/lerp_read.py:heads_read``) and the 16-tap Lanczos-sinc quality reads
+``gather_sinc_wrap`` / ``gather_sinc_clip``.  The sinc reads stay plain
+PyTorch on every device, as the JAX package computes them outside any
+Pallas kernel; they gather each tap directly instead of building the JAX
+package's packed [n, taps] row table (a TPU gather trick), which gives the
+same values, and keep its tap order.  Their twins agree to ~1e-5 (sin
+ulps), like the JAX package's.
 """
 from __future__ import annotations
 
@@ -77,6 +87,94 @@ def sig12_pair_np(x):
     hi = round_sig12_np(x)
     lo = round_sig12_np((x - hi).astype(np.float32))
     return hi, lo
+
+
+def gather_linear_wrap(audio: torch.Tensor, whole: torch.Tensor,
+                       frac: torch.Tensor) -> torch.Tensor:
+    """Wrap-around two-tap linear read: positions wrap mod n (Python's
+    sign rule: ``torch.remainder``, never ``fmod``), then
+    ``(1 - fr) * audio[pw] + fr * audio[(pw + 1) mod n]``."""
+    n = audio.shape[0]
+    pw = torch.remainder(whole, n)
+    i1 = torch.remainder(pw + 1, n)
+    fr = frac.to(torch.float32) * float(POS_INV_F)
+    return (1.0 - fr) * audio[pw] + fr * audio[i1]
+
+
+def gather_linear_wrap_np(audio, whole, frac):
+    n = audio.shape[0]
+    pw = np.mod(whole, n)
+    i1 = np.mod(pw + 1, n)
+    fr = frac.astype(np.float32) * POS_INV_F
+    s0 = audio[pw]
+    s1 = audio[i1]
+    return (np.float32(1.0) - fr) * s0 + fr * s1
+
+
+def _lanczos_w(x: torch.Tensor, half: int) -> torch.Tensor:
+    # sinc(x) * sinc(x / half) on |x| < half, 0 outside; torch.sinc, like
+    # jnp.sinc, is the normalized sinc
+    return torch.where(torch.abs(x) < half,
+                       torch.sinc(x) * torch.sinc(x / half), 0.0)
+
+
+def _sinc_weight_dot(vals, fr: torch.Tensor, half: int) -> torch.Tensor:
+    """Weight-normalized tap dot: ``vals[t]`` is tap t's [T] column (the
+    JAX package's ``vals[..., t]``), accumulated in tap order with one
+    rounding per op."""
+    acc = torch.zeros_like(fr)
+    wsum = torch.zeros_like(fr)
+    for t, j in enumerate(range(-half + 1, half + 1)):
+        w = _lanczos_w(float(j) - fr, half)
+        acc = acc + w * vals[t]
+        wsum = wsum + w
+    return acc / wsum
+
+
+def gather_sinc_wrap(audio: torch.Tensor, whole: torch.Tensor,
+                     frac: torch.Tensor, taps: int = 16) -> torch.Tensor:
+    """Wrap-around Lanczos-windowed-sinc read (quality mode): taps at
+    offsets j in [-taps/2 + 1, taps/2] around ``whole mod n``, weights
+    sinc(j - fr) * sinc((j - fr) / half) normalized to unit sum."""
+    n = audio.shape[0]
+    half = taps // 2
+    fr = frac.to(torch.float32) * float(POS_INV_F)
+    pw = torch.remainder(whole.to(torch.int64), n)
+    vals = [audio[torch.remainder(pw + j, n)]
+            for j in range(-half + 1, half + 1)]
+    return _sinc_weight_dot(vals, fr, half)
+
+
+def gather_sinc_clip(audio: torch.Tensor, whole: torch.Tensor,
+                     frac: torch.Tensor, taps: int = 16) -> torch.Tensor:
+    """Edge-clamped variant (the tape's reads clamp at the buffer ends):
+    tap j reads ``audio[clip(clip(whole, 0, n-1) + j, 0, n-1)]``, the
+    values of the JAX package's edge-padded shifted rows."""
+    n = audio.shape[0]
+    half = taps // 2
+    fr = frac.to(torch.float32) * float(POS_INV_F)
+    i0 = whole.to(torch.int64).clamp(0, n - 1)
+    vals = [audio[(i0 + j).clamp(0, n - 1)]
+            for j in range(-half + 1, half + 1)]
+    return _sinc_weight_dot(vals, fr, half)
+
+
+def _lanczos_w_np(x, half):
+    return np.where(np.abs(x) < half,
+                    np.sinc(x) * np.sinc(x / half), 0.0).astype(np.float32)
+
+
+def gather_sinc_wrap_np(audio, whole, frac, taps: int = 16):
+    n = audio.shape[0]
+    half = taps // 2
+    fr = frac.astype(np.float32) * POS_INV_F
+    acc = np.zeros(np.shape(whole), np.float32)
+    wsum = np.zeros(np.shape(whole), np.float32)
+    for j in range(-half + 1, half + 1):
+        w = _lanczos_w_np(np.float32(j) - fr, half)
+        acc = np.float32(acc + w * audio[np.mod(whole + j, n)])
+        wsum = np.float32(wsum + w)
+    return acc / wsum
 
 
 def segmented_pos_cumsum(inc: torch.Tensor, reset: torch.Tensor,

@@ -12,6 +12,7 @@ overflow int64, so every multiply by a 32-bit constant is split into its
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _MASK32 = 0xFFFFFFFF
@@ -68,3 +69,34 @@ def normal(seed, idx: torch.Tensor, stream=0) -> torch.Tensor:
         u = uniform(seed, idx, stream * 12 + k + 1)
         acc = u if acc is None else acc + u     # 0 + u == u: u >= 0
     return acc - 6.0
+
+
+# NumPy twins (copies of the JAX package's), for the scrub's host
+# increment twin (models/scrub.py:_inc_np)
+
+def hash_u32_np(seed, idx, stream=0):
+    seed = np.asarray(seed, np.uint32)
+    idx = np.asarray(idx, np.uint32)
+    stream = np.asarray(stream, np.uint32)
+    m1, m2 = np.uint32(_M1), np.uint32(_M2)
+    with np.errstate(over="ignore"):
+        h = seed * np.uint32(_GOLDEN) + idx * m1 + stream * m2
+        h = h ^ (h >> np.uint32(16))
+        h = h * m1
+        h = h ^ (h >> np.uint32(13))
+        h = h * m2
+        h = h ^ (h >> np.uint32(16))
+    return h
+
+
+def uniform_np(seed, idx, stream=0):
+    return ((hash_u32_np(seed, idx, stream) >> np.uint32(8))
+            .astype(np.float32) * np.float32(_INV24))
+
+
+def normal_np(seed, idx, stream=0):
+    acc = np.zeros(np.broadcast_shapes(np.shape(seed), np.shape(idx)),
+                   np.float32)
+    for k in range(12):
+        acc = acc + uniform_np(seed, idx, stream * 12 + k + 1)
+    return (acc - np.float32(6.0)).astype(np.float32)

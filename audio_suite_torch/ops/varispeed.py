@@ -1,5 +1,6 @@
 """Varispeed tape playback on the device — port of the table engine of
-audio_suite_tpu/ops/varispeed.py (``tape_device_render``, linear read).
+audio_suite_tpu/ops/varispeed.py (``tape_device_render``, linear and sinc
+reads).
 
 The host (C++, utils/native_rt.py) reduces a render to compact control
 tables: section visits with their entry positions, the inertia speed curve
@@ -12,7 +13,8 @@ to the JAX package:
   position sum, the section read index and fraction, and the anti-click x
   splice gain;
 - ``tape_device_render``: the linear read (``ops/lerp_read.py``, the CUDA
-  kernel on the card), gain, clip and PCM16.
+  kernel on the card) or the sinc read (``fixq.gather_sinc_clip``, plain
+  PyTorch), gain, clip and PCM16.
 
 The JAX package pads the tables to powers of two and the render to 32 768-
 sample buckets only to avoid XLA recompiles; PyTorch runs eagerly, so the
@@ -28,8 +30,8 @@ import numpy as np
 import torch
 
 from . import detmath
-from .fixq import (POS_FRAC_BITS, POS_INV_F, POS_ONE, quantize_f32,
-                   round_sig12, segmented_pos_cumsum)
+from .fixq import (POS_FRAC_BITS, POS_INV_F, POS_ONE, gather_sinc_clip,
+                   quantize_f32, round_sig12, segmented_pos_cumsum)
 from .lerp_read import lerp_read
 
 _INV = float(POS_INV_F)
@@ -169,17 +171,23 @@ def tape_device_render(audio: torch.Tensor, tab: dict, consts: TapeConsts,
                        interp: str = "linear",
                        with_pieces: bool = False) -> torch.Tensor:
     """Whole tape render on the device from the control tables (see
-    ``tape_positions`` for ``tab``): the linear read, gain, clip to
-    [-1, 1], and PCM16 with ``out_i16``.  Returns f32 [T] or int16 [T] on
-    ``audio``'s device."""
-    if interp != "linear":
-        raise NotImplementedError(f"interp={interp!r}: the sinc read is "
-                                  f"not ported ({_QUEUE6})")
+    ``tape_positions`` for ``tab``): the linear read (``interp="linear"``)
+    or the 16-tap Lanczos-sinc read (``"sinc"``), gain, clip to [-1, 1],
+    and PCM16 with ``out_i16``.  Returns f32 [T] or int16 [T] on
+    ``audio``'s device (any other ``interp`` reads linearly, as in the
+    JAX package)."""
     if with_pieces:
         raise NotImplementedError("the splice-piece path of the trace "
                                   f"renderer is not ported ({_QUEUE6})")
     idx0, fr, gain = tape_positions(tab, consts, audio.shape[0], T)
-    s = torch.clamp(lerp_read(audio, idx0, fr) * gain, -1.0, 1.0)
+    if interp == "sinc":
+        # the sinc read takes its fraction in 2**-22 units: the JAX
+        # package's quantization round trip (varispeed.py:1019-1031)
+        fq = torch.round(fr * float(POS_ONE)).to(torch.int32)
+        s = gather_sinc_clip(audio, idx0, fq)
+    else:
+        s = lerp_read(audio, idx0, fr)
+    s = torch.clamp(s * gain, -1.0, 1.0)
     if out_i16:
         q = torch.clamp(torch.round(s * 32768.0), -32768.0, 32767.0)
         return q.to(torch.int16)

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives audio_suite_torch's three ported paths at full size on the card,
+Drives audio_suite_torch's four ported paths at full size on the card,
 in phases; any failure raises and the exit code is non-zero.  The paths:
 
 - Microsound: the bench's high-rate transient-field configuration
@@ -14,7 +14,10 @@ in phases; any failure raises and the exit code is non-zero.  The paths:
   output frames), the default device render;
 - Pattern Lab: bench config 4 (bench.py:430-447: 44.1 kHz, 8 s, bpm 128,
   seed 9, the four builtin generators: 333 events, 326 notes in 14
-  buckets), rendered through ``models.patternlab.render``.
+  buckets), rendered through ``models.patternlab.render``;
+- scrub: bench config 2 (bench.py:268-292: a 10 s 48 kHz tape scrubbed
+  for 30 s by three heads, three drags, a jump; 1 439 744 frames),
+  rendered through ``models.scrub.render_scrub``.
 
 Phases:
 
@@ -46,7 +49,18 @@ Phases:
    within -100 dBFS of the same render on the CPU; timing of the bench's
    ``run()`` (memoized prepare, PCM16 render, pull), the render's device
    time, a fresh prepare, and one ``torch.profiler`` window (device events
-   and device-busy time per render, the top kernels).
+   and device-busy time per render, the top kernels);
+6. scrub: the lerp-read kernel's wrap-around multi-head form against its
+   plain version at the full-size render's own positions (bit-equal in
+   both forms, timed in the render's, with its bound; no one PyTorch call
+   computes the read); the PCM16 and float renders through
+   ``render_scrub`` with every launch counted (one per render); output
+   checks; the float render bit-equal to one made with the plain read;
+   the smoke size (plain and with the drags and jump scaled into it) and
+   the ``scrub_keys`` golden within -120 dBFS of the CPU render, the
+   ``scrub_sinc`` golden within -100 dBFS; timing of the bench's
+   ``run()`` (cached program, PCM16 render, pull, host stereo), the
+   render's device time, a fresh program, and one profiler window.
 
 Every kernel's launch count is set to 0 just before a path is driven and
 read just after it.  A kernel is timed twice.  Warm (its ``ms``, the
@@ -89,11 +103,15 @@ SLEEP_CYCLES = 10_000_000  # ~5 ms at the H100's clock: longer than the host
 FLUSH_BYTES = 256 << 20    # read before each L2-flushed call (L2: 50 MB)
 HBM_BYTES_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOP_S = 67e12         # H100 SXM f32 rate outside the tensor cores
-KERNELS = ("overlap_add", "lerp_read")
+KERNELS = ("overlap_add", "lerp_read")     # sources, one nvcc each
+# launch-counting wrappers: lerp_read.cu's two forms count apart
+WRAPPERS = ("overlap_add", "lerp_read", "heads_read")
 TAPE_SECONDS = 180.0   # bench config 1's tape and target length
 TAPE_FRAMES = 8745204  # its output frames after the retime
 PL_SECONDS = 8.0       # bench config 4's render length
-PROFILED_RENDERS = 3   # renders in the Pattern Lab profiler window
+PROFILED_RENDERS = 3   # renders in a profiler window
+SCRUB_SECONDS, SCRUB_TAPE = 30.0, 10.0   # bench config 2's render and tape
+SCRUB_FRAMES = 1439744  # its output frames: 1 406 blocks of 1 024
 
 
 def config3(full: bool):
@@ -114,17 +132,22 @@ def config3(full: bool):
     return p, ir
 
 
-def config1(seconds: float):
-    """bench.py:157-265 (``seconds`` 180: _SMOKE off; 4: its smoke size):
-    the bench's tape (bench.py:_test_audio), params and output frames."""
-    from audio_suite_torch.models import tape
-    sr = 48000
+def bench_audio(sr: int, seconds: float) -> np.ndarray:
+    """bench.py:_test_audio."""
     rng = np.random.default_rng(7)
     t = np.arange(int(sr * seconds)) / sr
     x = (0.5 * np.sin(2 * np.pi * 220 * t)
          + 0.3 * np.sin(2 * np.pi * 933 * t + 0.5)
          + 0.1 * rng.standard_normal(t.size))
-    audio = (x / np.max(np.abs(x))).astype(np.float32)
+    return (x / np.max(np.abs(x))).astype(np.float32)
+
+
+def config1(seconds: float):
+    """bench.py:157-265 (``seconds`` 180: _SMOKE off; 4: its smoke size):
+    the bench's tape (bench.py:_test_audio), params and output frames."""
+    from audio_suite_torch.models import tape
+    sr = 48000
+    audio = bench_audio(sr, seconds)
     n = len(audio)
     p = tape.TapeParams(
         sample_rate=sr, markers=[int(n * f) for f in (0.12, 0.3, 0.45,
@@ -167,6 +190,43 @@ def config4(seconds: float):
     return events, cfg
 
 
+def config2(seconds: float, audio_seconds: float, scale: float = 1.0):
+    """bench.py:268-292 (``seconds`` 30 over 10 s of tape: _SMOKE off; 2
+    over 2: its smoke size, where ``scale`` 2/30 moves the drags and the
+    jump into the 2 s): (audio, cfg, trace)."""
+    from audio_suite_torch.models import scrub
+    sr = 48000
+    cfg = scrub.ScrubConfig(sample_rate=sr, head_count=3)
+    trace = scrub.scripted_gesture_trace(
+        int(seconds * sr / scrub.BLOCK_SIZE), sr,
+        drag_events=[(t * scale, dx, d * scale) for t, dx, d in
+                     ((2.0, 8.0, 3.0), (10.0, -14.0, 4.0), (20.0, 4.0, 5.0))],
+        base_speed=0.5, jumps=[(15.0 * scale, 1000.0)])
+    return bench_audio(sr, audio_seconds), cfg, trace
+
+
+def scrub_golden(name: str):
+    """The ``scrub_keys`` and ``scrub_sinc`` golden configurations
+    (tests/test_goldens.py:165-183): (audio, cfg, trace, render kwargs)."""
+    from audio_suite_torch.models import scrub
+    sr = 8000
+    t = np.arange(sr * 2) / sr
+    audio = (0.5 * np.sin(2 * np.pi * 220 * t)
+             + 0.25 * np.sin(2 * np.pi * 933 * t)).astype(np.float32)
+    if name == "scrub_keys":
+        cfg = scrub.ScrubConfig(sample_rate=sr, seed=5, head_count=3)
+        trace = scrub.scripted_gesture_trace(
+            40, sr, drag_events=[(0.3, 4.0, 0.4)], base_speed=0.5,
+            jumps=[(0.9, 3000.0)],
+            key_events=[(0.2, "2"), (0.4, "Z"), (0.6, "1"), (0.8, "V"),
+                        (1.0, "3"), (1.2, "Down")])
+        return audio, cfg, trace, {"tape_pos0": 2000.0}
+    cfg = scrub.ScrubConfig(sample_rate=sr, seed=11, head_count=1)
+    trace = scrub.scripted_gesture_trace(
+        30, sr, drag_events=[(0.4, -6.0, 0.6)], base_speed=0.8)
+    return audio, cfg, trace, {"interp": "sinc"}
+
+
 def smi(query: str) -> str:
     """``nvidia-smi --query-gpu=<query>`` of card 0, as CSV."""
     return subprocess.run(["nvidia-smi", f"--query-gpu={query}",
@@ -177,13 +237,13 @@ def smi(query: str) -> str:
 
 def reset_counts():
     from audio_suite_torch import kernels
-    for k in KERNELS:
+    for k in WRAPPERS:
         getattr(kernels, k).launches = 0
 
 
 def read_counts() -> dict:
     from audio_suite_torch import kernels
-    return {k: getattr(kernels, k).launches for k in KERNELS}
+    return {k: getattr(kernels, k).launches for k in WRAPPERS}
 
 
 def cuda_ms(fn, runs: int) -> float:
@@ -695,6 +755,175 @@ def patternlab_path(dev, card: str) -> dict:
             "library_ms": library_ms}
 
 
+def scrub_path(dev, card: str) -> dict:
+    """Phase 6: the scrub config-2 path; returns the lerp-read kernel's
+    figures in its wrap-around multi-head form at config 2."""
+    from audio_suite_torch import kernels
+    from audio_suite_torch.models import scrub
+    from audio_suite_torch.ops import lerp_read as lr
+
+    audio, cfg, trace = config2(SCRUB_SECONDS, SCRUB_TAPE)
+    prog = scrub.build_scrub_program_cached(audio, cfg, trace)
+    T, span = prog["num_frames"], scrub.program_span(prog)
+    segs = prog["head_segments"]
+    if T != SCRUB_FRAMES or len(segs) != 1:
+        raise AssertionError(f"config 2 renders {T} frames in {len(segs)} "
+                             "head segments")
+    seg = segs[0]
+    ow, of, gain = seg["off_whole"].tolist(), seg["off_frac"].tolist(), \
+        float(seg["gain"])
+    if not scrub.reads_summed(T, len(audio), span, of):
+        raise AssertionError("config 2 no longer reads in form A")
+    print(f"scrub: n {len(audio)} -> T {T}, span {span}, heads {ow} "
+          f"(gain {gain:.4f}), form A (heads summed, one lerp); "
+          f"{int(prog['jump_flags'].sum())} jump, "
+          f"{int((prog['env_blocks'] < 1).sum())} dropout blocks",
+          flush=True)
+
+    # kernel vs plain at the full-size render's own positions
+    dp = scrub.device_program(prog, dev)
+    whole, frac = scrub._positions(
+        dp["base_inc_q"], dp["js_q"], prog["seed"], prog["mod_consts"],
+        dp["jump_flags"], dp["seg_bases_whole"], dp["seg_bases_frac"],
+        prog["block_size"])
+    a = dp["audio"]
+    errs = []
+    for form in (True, False):            # A, the render's; B for coverage
+        want = lr.heads_read_plain(a, whole, frac, ow, of, gain, form)
+        got = kernels.heads_read(a, whole, frac, ow, of, gain, form)
+        torch.cuda.synchronize()
+        errs.append((got - want).abs().max().item())
+        if not torch.equal(got, want):
+            raise AssertionError(f"heads_read kernel (form "
+                                 f"{'A' if form else 'B'}) differs from its "
+                                 f"plain version: max |err| {errs[-1]}")
+    hr_ms = kernel_ms(lambda: kernels.heads_read(a, whole, frac, ow, of,
+                                                 gain, True),
+                      TIMED_KERNEL_RUNS, KERNEL_LAUNCHES)
+    cold_ms = flushed_ms(lambda: kernels.heads_read(a, whole, frac, ow, of,
+                                                    gain, True),
+                         KERNEL_LAUNCHES)
+    plain_ms = cuda_ms(lambda: lr.heads_read_plain(a, whole, frac, ow, of,
+                                                   gain, True),
+                       TIMED_KERNEL_RUNS)
+    nbytes = 4 * (a.numel() + 3 * T)
+    # per sample: two adds a head, the lerp's four operations, the gain
+    bound, bound_by = bound_ms(nbytes, T * (2 * len(ow) + 5))
+    print(f"heads_read: n {a.numel()} T {T} heads {len(ow)} "
+          f"({nbytes / 1e6:.2f} MB): forms A and B bit-equal to plain; "
+          f"kernel warm {hr_ms:.4f} ms ({bound / hr_ms:.1%} of its "
+          f"{bound:.4f} ms bound by {bound_by}), L2 flushed {cold_ms:.4f} "
+          f"ms ({bound / cold_ms:.1%}); plain {plain_ms:.4f} ms (one event "
+          f"pair per call) {card}", flush=True)
+    print("heads_read: no library time: no one PyTorch call computes the "
+          "wrap-around multi-head read (grid_sample wants normalised "
+          "float32 coordinates and has no wrap at a tape's length)",
+          flush=True)
+
+    # the main path, every launch counted: the bench's PCM16 render and
+    # the float render, both through render_scrub
+    reset_counts()
+    y16 = scrub.render_scrub(audio, cfg, trace, pcm16=True, device=dev)
+    y = scrub.render_scrub(audio, cfg, trace, device=dev)
+    launches = read_counts()
+    renders = 2
+    if y16.shape != (T,) or y16.dtype != np.int16:
+        raise AssertionError(f"PCM16 render gave {y16.shape} {y16.dtype}")
+    if y.shape != (T,) or y.dtype != np.float32:
+        raise AssertionError(f"render gave {y.shape} {y.dtype}")
+    if not np.isfinite(y).all():
+        raise AssertionError("non-finite samples in the float render")
+    peak16 = int(np.abs(y16.astype(np.int32)).max())
+    if peak16 < 10000:
+        raise AssertionError(f"render is near silent: peak {peak16}")
+    lsb = int(np.abs(np.rint(y.astype(np.float64) * 32768.0).clip(
+        -32768, 32767) - y16).max())
+    if lsb != 0:
+        raise AssertionError(f"PCM16 render is {lsb} LSB from the float one")
+    if launches["heads_read"] != renders:
+        raise AssertionError(f"{launches['heads_read']} heads_read launches "
+                             f"for {renders} renders")
+    print(f"render: {T} frames f32 peak {np.abs(y).max():.4f}, PCM16 peak "
+          f"{peak16}; kernel launches {launches}", flush=True)
+
+    y_kernel = scrub.render_scrub(audio, cfg, trace, device=dev,
+                                  device_out=True)
+    with mock.patch.object(scrub, "heads_read", lr.heads_read_plain):
+        y_plain = scrub.render_scrub(audio, cfg, trace, device=dev,
+                                     device_out=True)
+    if not torch.equal(y_kernel, y_plain):
+        raise AssertionError("float render with the kernel differs from the "
+                             "render with the plain read")
+    checks = []
+    for label, (a_s, c_s, t_s, kw), tol in (
+            ("config 2 smoke", (*config2(2.0, 2.0), {}), -120.0),
+            ("config 2 smoke, scaled drags and jump",
+             (*config2(2.0, 2.0, 2.0 / 30.0), {}), -120.0),
+            ("scrub_keys golden", scrub_golden("scrub_keys"), -120.0),
+            ("scrub_sinc golden", scrub_golden("scrub_sinc"), -100.0)):
+        ys_gpu = scrub.render_scrub(a_s, c_s, t_s, device=dev, **kw)
+        ys_cpu = scrub.render_scrub(a_s, c_s, t_s, device="cpu", **kw)
+        dmax = np.abs(ys_gpu.astype(np.float64) - ys_cpu).max()
+        dev_db = 20 * np.log10(max(dmax, 1e-300))
+        if dev_db > tol:
+            raise AssertionError(f"{label} on the card is {dev_db:.1f} "
+                                 "dBFS from the CPU render")
+        checks.append(f"{label} {dev_db:.2f} dBFS (bit-equal: "
+                      f"{bool(np.array_equal(ys_gpu, ys_cpu))})")
+    print("check: float render bit-equal with the plain read; card vs CPU: "
+          + "; ".join(checks), flush=True)
+
+    # timing: the bench's run() (bench.py:290-292: cached program, PCM16
+    # render, pull, host stereo), the render's device time, a fresh
+    # program, one profiler window
+    def run():
+        mono = scrub.render_scrub(audio, cfg, trace, pcm16=True, device=dev)
+        return np.repeat(mono[:, None], 2, axis=1)
+
+    walls = []
+    for _ in range(TIMED_RENDERS):
+        t0 = time.perf_counter()
+        run()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+
+    def device_render():
+        return scrub.render_scrub(audio, cfg, trace, pcm16=True, device=dev,
+                                  device_out=True)
+
+    device_ms = cuda_ms(device_render, TIMED_RENDERS)
+    fresh_s = []
+    for _ in range(TIMED_RENDERS):
+        t0 = time.perf_counter()
+        scrub.build_scrub_program(audio, cfg, trace)
+        fresh_s.append(time.perf_counter() - t0)
+    prof = profile_renders(device_render, PROFILED_RENDERS)
+    print(f"timing: bench run() wall median {wall * 1e3:.2f} ms of "
+          f"{TIMED_RENDERS} (cached program, PCM16 render, pull, host "
+          f"stereo) -> realtime x{SCRUB_SECONDS / wall:.1f}; device "
+          f"{device_ms:.3f} ms (render_scrub, device_out, pcm16); fresh "
+          f"build_scrub_program median {statistics.median(fresh_s) * 1e3:.2f}"
+          f" ms (host) {card}", flush=True)
+    if prof:
+        print(f"profile ({PROFILED_RENDERS} renders): "
+              f"{prof['events_per_render']:.0f} device events per render, "
+              f"device-busy {prof['busy_ms_per_render']:.3f} ms per render "
+              f"({prof['busy_ms_per_render'] / device_ms:.1%} of the "
+              f"device time) {card}", flush=True)
+        for name, t, c in prof["top"]:
+            print(f"profile:   {t:.3f} ms {c:.0f}x {name}", flush=True)
+    else:
+        print("profile: the profiler saw no device event; launches and "
+              "busy time not measured", flush=True)
+
+    return {"launches": launches["heads_read"],
+            "launches_per_render": launches["heads_read"] / renders,
+            "shape": [a.numel(), T, len(ow)], "form": "A",
+            "max_abs_err": max(errs), "ms": hr_ms, "ms_l2_flushed": cold_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": None}
+
+
 def main() -> int:
     # ---- 1. probe
     if not torch.cuda.is_available():
@@ -719,15 +948,22 @@ def main() -> int:
     print(f"build: {len(built)} kernels in {time.perf_counter() - t0:.2f} s",
           flush=True)
 
-    # ---- 3., 4., 5. the paths; the overlap-add runs on two of them, so
-    # its row counts the launches of both and holds config 4's figures
+    # ---- 3.-6. the paths; the overlap-add runs on two of them, so its
+    # row counts the launches of both and holds config 4's figures; the
+    # lerp read likewise, in its clamp form (tape) and its wrap-around
+    # multi-head form (scrub), whose figures it holds as config2
     oa_row = microsound_path(dev, card)
     lr_row = tape_path(dev, card)
     pl_oa = patternlab_path(dev, card)
+    sc_lr = scrub_path(dev, card)
     oa_row["launches_by_path"] = {"microsound": oa_row["launches"],
                                   "patternlab": pl_oa["launches"]}
     oa_row["launches"] += pl_oa["launches"]
     oa_row["config4"] = pl_oa
+    lr_row["launches_by_path"] = {"tape": lr_row["launches"],
+                                  "scrub": sc_lr["launches"]}
+    lr_row["launches"] += sc_lr["launches"]
+    lr_row["config2"] = sc_lr
     rows = [oa_row, lr_row]
 
     print(json.dumps({"kernels": rows}))

@@ -207,6 +207,8 @@ _ENTRY_POINTS = [
     ("patternlab", "render"), ("patternlab", "render_device"),
     ("patternlab", "render_preset"), ("patternlab", "prepared_to_device"),
     ("patternlab", "MegaDriveInspiredSynth"),
+    ("scrub", "render_scrub"), ("scrub", "scrub_render_kernel"),
+    ("scrub", "scrub_render_segments"), ("scrub", "device_program"),
 ]
 # not entry points: a helper that moves arrays to the device it is given,
 # and a record that holds its device
@@ -217,7 +219,7 @@ _DEVICE_HELPERS = {("microsound", "program_to_device"),
 def _models():
     import importlib
     return {m: importlib.import_module(f"audio_suite_torch.models.{m}")
-            for m in ("microsound", "tape", "patternlab")}
+            for m in ("microsound", "tape", "patternlab", "scrub")}
 
 
 @pytest.mark.parametrize("mod,name", _ENTRY_POINTS,

@@ -13,6 +13,7 @@ import torch
 from audio_suite_torch import kernels
 from audio_suite_torch.models import microsound as ms
 from audio_suite_torch.models import patternlab as pl
+from audio_suite_torch.models import scrub
 from audio_suite_torch.models import tape
 from audio_suite_torch.ops import lerp_read as lr
 from audio_suite_torch.ops import overlap_add as oa
@@ -245,6 +246,106 @@ def test_tape_smoke_render_on_cuda_matches_cpu(cuda):
     n0 = kernels.lerp_read.launches
     got, _ = tape.tape_table_render(_smoke_tape(cuda))
     assert kernels.lerp_read.launches == n0 + 1
+    dev = np.abs(got.astype(np.float64) - want).max()
+    assert 20 * np.log10(max(dev, 1e-300)) <= -120.0
+
+
+def _hr_case(seed, n, T):
+    """Near-monotone wrapped positions (steps of -2..2 samples, a jump)
+    that start below 0 and run past n, with random fractions."""
+    rng = np.random.default_rng(seed)
+    audio = rng.uniform(-1, 1, n).astype(np.float32)
+    steps = rng.integers(-2 * (1 << 22), 2 * (1 << 22), T)
+    pos = -3 * (1 << 22) * 1000 + np.cumsum(steps)
+    pos[T // 2:] += 7 * n * (1 << 22)                 # a jump past n
+    whole = (pos >> 22).astype(np.int32)
+    frac = (pos & ((1 << 22) - 1)).astype(np.int32)
+    return (torch.tensor(audio), torch.tensor(whole), torch.tensor(frac))
+
+
+@pytest.mark.parametrize("summed", [True, False], ids=["A", "B"])
+@pytest.mark.parametrize("n,T,ow,of", [
+    (480000, 1439744, [-2000, 0, 2000], [0, 0, 0]),   # config 2's layout
+    (16000, 1 << 16, [-2000, 2000], [0, 0]),
+    (16000, 1 << 16, [0], [0]),
+    (700, 12288, [-16001, 3, 31999], [0, 0, 0]),      # offsets past n
+    (16000, 40960, [-1501, 0, 1999], [3145728, 2097152, 1048576]),
+])
+def test_heads_read_kernel_bit_equal_to_plain(cuda, summed, n, T, ow, of):
+    if summed and any(of):
+        of = [0] * len(of)
+    audio, whole, frac = _hr_case(n + T + len(ow), n, T)
+    gain = float(np.float32(0.8 / len(ow)))
+    want = lr.heads_read_plain(audio, whole, frac, ow, of, gain, summed)
+    a, w, f = audio.to(cuda), whole.to(cuda), frac.to(cuda)
+    plain = lr.heads_read_plain(a, w, f, ow, of, gain, summed)
+    n0 = kernels.heads_read.launches
+    got = lr.heads_read(a, w, f, ow, of, gain, summed)
+    torch.cuda.synchronize()
+    assert kernels.heads_read.launches == n0 + 1
+    assert torch.equal(got, plain)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_heads_read_kernel_on_segment_slices(cuda):
+    """The live-control render reads slices of the positions: each slice's
+    launch equals the plain read of the same slice."""
+    audio, whole, frac = _hr_case(5, 16000, 40960)
+    a, w, f = audio.to(cuda), whole.to(cuda), frac.to(cuda)
+    for t0, t1, ow, of, summed in [(0, 2048, [-700, 650], [2097152, 0], False),
+                                   (2048, 7168, [-2000, 2000], [0, 0], True),
+                                   (7168, 12288, [0], [0], True),
+                                   (12288, 40960, [-2200, 0, 2200], [0] * 3,
+                                    True)]:
+        got = lr.heads_read(a, w[t0:t1], f[t0:t1], ow, of, 0.4, summed)
+        want = lr.heads_read_plain(audio, whole[t0:t1], frac[t0:t1], ow, of,
+                                   0.4, summed)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+
+
+def test_heads_read_kernel_rejects_what_it_does_not_take(cuda):
+    audio, whole, frac = _hr_case(0, 100, 64)
+    a, w, f = audio.to(cuda), whole.to(cuda), frac.to(cuda)
+    n0 = kernels.heads_read.launches
+    with pytest.raises(TypeError):
+        kernels.heads_read(a, w.long(), f, [0], [0], 1.0, True)
+    with pytest.raises(ValueError):
+        kernels.heads_read(a, w[::2], f[::2], [0], [0], 1.0, True)
+    with pytest.raises(ValueError):
+        kernels.heads_read(a, w, f, [0, 1, 2, 3], [0] * 4, 1.0, False)
+    with pytest.raises(ValueError):
+        kernels.heads_read(a, w, f, [0], [7], 1.0, True)
+    with pytest.raises(ValueError):
+        kernels.heads_read(audio, w, f, [0], [0], 1.0, True)
+    assert kernels.heads_read.launches == n0
+
+
+def _smoke_scrub():
+    """Bench config 2 (bench.py:268-292) at its smoke size, its drags and
+    jump scaled into the 2 s: (audio, cfg, trace)."""
+    sr, k = 48000, 2.0 / 30.0
+    rng = np.random.default_rng(7)
+    t = np.arange(2 * sr) / sr
+    x = (0.5 * np.sin(2 * np.pi * 220 * t)
+         + 0.3 * np.sin(2 * np.pi * 933 * t + 0.5)
+         + 0.1 * rng.standard_normal(t.size))
+    audio = (x / np.max(np.abs(x))).astype(np.float32)
+    cfg = scrub.ScrubConfig(sample_rate=sr, head_count=3)
+    trace = scrub.scripted_gesture_trace(
+        int(2 * sr / scrub.BLOCK_SIZE), sr,
+        drag_events=[(2 * k, 8.0, 3 * k), (10 * k, -14.0, 4 * k),
+                     (20 * k, 4.0, 5 * k)],
+        base_speed=0.5, jumps=[(15 * k, 1000.0)])
+    return audio, cfg, trace
+
+
+def test_scrub_smoke_render_on_cuda_matches_cpu(cuda):
+    audio, cfg, trace = _smoke_scrub()
+    want = scrub.render_scrub(audio, cfg, trace, device="cpu")
+    n0 = kernels.heads_read.launches
+    got = scrub.render_scrub(audio, cfg, trace, device=cuda)
+    assert kernels.heads_read.launches == n0 + 1
     dev = np.abs(got.astype(np.float64) - want).max()
     assert 20 * np.log10(max(dev, 1e-300)) <= -120.0
 

@@ -16,7 +16,8 @@ Same inputs, made with numpy from a seed, through both packages:
   backend contracts that lerp into a fused multiply-add);
 - bench config 1 at its smoke size: the float render within -120 dBFS of
   JAX's ``tape_table_render`` and PCM16 within 1 LSB;
-- the ``tape`` and ``tape_splicefx`` golden fingerprints;
+- the ``tape``, ``tape_splicefx`` and ``tape_sinc`` golden fingerprints
+  (the sinc render within -100 dBFS of JAX, PCM16 within 1 LSB);
 - the unported paths raise, and the package renders with jax and the
   JAX package blocked.
 """
@@ -113,8 +114,21 @@ def _golden_splicefx(mod):
     return goldens._test_audio(), p, 18000
 
 
+def _golden_sinc(mod):
+    p = mod.TapeParams(sample_rate=goldens.SR, markers=[7000],
+                       section_speeds=[1.3, 0.6],
+                       section_reverse=[False, True], tape_age=55.0)
+    return goldens._test_audio(), p, 16000
+
+
 CONFIGS = {"config1_smoke": _config1, "tape": _golden_tape,
            "tape_splicefx": _golden_splicefx}
+# golden fixture -> (configuration, interp, dBFS bound against JAX): the
+# sinc read's weights go through sin, whose ulps differ between XLA and
+# PyTorch, so it is held to the JAX package's sinc-twin level
+GOLDENS = {"tape": (_golden_tape, "linear", TOL_DBFS),
+           "tape_splicefx": (_golden_splicefx, "linear", TOL_DBFS),
+           "tape_sinc": (_golden_sinc, "sinc", -100.0)}
 
 
 def _programs(name):
@@ -388,15 +402,37 @@ def test_config1_smoke_render_matches_jax():
     assert np.array_equal(tt.render_tape(audio, pt, device="cpu"), got)
 
 
-@pytest.mark.parametrize("name", ["tape", "tape_splicefx"])
+@pytest.mark.parametrize("name", sorted(GOLDENS))
 def test_golden_fingerprint(name):
-    audio, p, frames = CONFIGS[name](tt)
-    y = tt.render_tape(audio, p, frames, device="cpu")
+    config, interp, tol = GOLDENS[name]
+    audio, p, frames = config(tt)
+    y = tt.render_tape(audio, p, frames, device="cpu", interp=interp)
     with open(goldens.GOLDEN_PATH) as f:
         want = json.load(f)[name]
     goldens._compare(name, goldens._fingerprint(y), want)
-    ref = jt.render_tape(*CONFIGS[name](jt))
-    assert _dbfs(ref, y) <= TOL_DBFS
+    ref = jt.render_tape(*config(jt), interp=interp)
+    dev = _dbfs(ref, y)
+    print(f"{name} render vs JAX: {dev:.2f} dBFS")
+    assert dev <= tol
+
+
+def test_sinc_render_pcm16_matches_jax():
+    """The sinc read through ``tape_table_render``: PCM16 within 1 LSB of
+    JAX, and the fraction's quantization round trip in place (the read
+    takes ``rint(fr * 2**22)``, not ``fr``)."""
+    audio, pt, frames = _golden_sinc(tt)
+    _, pj, _ = _golden_sinc(jt)
+    progt = tt.build_tape_program(audio, pt, frames, device="cpu")
+    progj = jt.build_tape_program(audio, pj, frames)
+    got16, fin_t = tt.tape_table_render(progt, out_i16=True, interp="sinc")
+    want16, fin_j = jt.tape_table_render(progj, out_i16=True,
+                                         interp="sinc")
+    assert fin_t == fin_j and got16.dtype == np.int16
+    assert np.abs(got16.astype(np.int32) - want16.astype(np.int32)).max() \
+        <= 1
+    lin, _ = tt.tape_table_render(progt)
+    sinc, _ = tt.tape_table_render(progt, interp="sinc")
+    assert 0.0 < np.abs(sinc - lin).max() < 0.1
 
 
 def test_render_to_wav_matches_jax(tmp_path):
@@ -414,15 +450,13 @@ def test_render_to_wav_matches_jax(tmp_path):
     assert np.abs(wt - wj).max() <= 1.0 / 32768 + 1e-9
 
 
-@pytest.mark.parametrize("what", ["scan", "segment", "sinc", "trace",
-                                  "trace_cls", "pieces"])
+@pytest.mark.parametrize("what", ["scan", "segment", "trace", "trace_cls",
+                                  "pieces"])
 def test_unported_paths_raise(what):
     audio, p, frames = _golden_tape(tt)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
         if what in ("scan", "segment"):
             tt.render_tape(audio, p, frames, device="cpu", engine=what)
-        elif what == "sinc":
-            tt.render_tape(audio, p, frames, device="cpu", interp="sinc")
         elif what == "trace":
             tt.render_tape_trace(audio, p, None)
         elif what == "trace_cls":
