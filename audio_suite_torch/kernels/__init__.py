@@ -74,14 +74,16 @@ _SIGNATURES = {
     "lerp_read": {
         "lr_launch": ([_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P],
                       ctypes.c_int),
-        "hr_launch": ([_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+        "sr_launch": ([_P, ctypes.c_int, _P, _P, _P, ctypes.c_int, _P,
+                       ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
                        ctypes.c_int, ctypes.POINTER(ctypes.c_int),
                        ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-                       ctypes.c_float, _P], ctypes.c_int),
+                       ctypes.c_float, _P],
+                      ctypes.c_int),
         "lr_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
 }
-MAX_HEADS = 3           # heads_read_kernel's head slots (lerp_read.cu)
+MAX_HEADS = 3           # scrub_read_kernel's head slots (lerp_read.cu)
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -172,55 +174,73 @@ def lerp_read(audio: torch.Tensor, idx0: torch.Tensor,
 lerp_read.launches = 0
 
 
-def heads_read(audio: torch.Tensor, whole: torch.Tensor, frac: torch.Tensor,
-               off_whole, off_frac, gain: float,
-               summed: bool) -> torch.Tensor:
-    """Launch ``lerp_read.cu``'s wrap-around multi-head read on the current
-    stream and return the new f32[T] read (see the source for forms A,
-    ``summed``, and B).  ``audio`` f32[n], ``whole``/``frac`` i32[T], all on
-    one CUDA device, contiguous, 0 < n < 2**31; ``off_whole``/``off_frac``
-    1 to 3 host ints each; ``gain`` an f32 value."""
-    for t in (audio, whole, frac):
+def scrub_read(audio: torch.Tensor, whole: torch.Tensor, frac: torch.Tensor,
+               off_whole, off_frac, gain: float, summed: bool,
+               env_blocks: torch.Tensor, block_size: int, out: torch.Tensor,
+               t0: int, t1: int) -> torch.Tensor:
+    """Launch ``lerp_read.cu``'s fused scrub read on the current stream:
+    ``out[t0:t1]`` = the wrap-around multi-head read of ``whole[t0:t1]``,
+    ``frac[t0:t1]`` (forms A, ``summed``, and B: see the source), times
+    ``gain``, times ``env_blocks[g // block_size]`` for sample g, as f32 or
+    (an int16 ``out``) PCM16; returns ``out``.  ``audio`` f32[n], ``whole``
+    / ``frac`` i32[T], ``out`` [T], ``env_blocks`` f32, all on one CUDA
+    device, contiguous, 0 < n < 2**31, T < 2**30; ``off_whole`` /
+    ``off_frac`` 1 to 3 host ints each; ``gain`` an f32 value."""
+    tensors = (audio, whole, frac, env_blocks, out)
+    for t in tensors:
         if t.device.type != "cuda":
-            raise ValueError("heads_read kernel: tensors must be on CUDA")
+            raise ValueError("scrub_read kernel: tensors must be on CUDA")
         if not t.is_contiguous():
-            raise ValueError("heads_read kernel: tensors must be "
+            raise ValueError("scrub_read kernel: tensors must be "
                              "contiguous")
-    if not (audio.device == whole.device == frac.device):
-        raise ValueError("heads_read kernel: tensors must share one device")
-    if audio.dtype != torch.float32:
-        raise TypeError("heads_read kernel: audio must be float32")
+    if any(t.device != audio.device for t in tensors):
+        raise ValueError("scrub_read kernel: tensors must share one device")
+    if audio.dtype != torch.float32 or env_blocks.dtype != torch.float32:
+        raise TypeError("scrub_read kernel: audio and env_blocks must be "
+                        "float32")
     if whole.dtype != torch.int32 or frac.dtype != torch.int32:
-        raise TypeError("heads_read kernel: whole and frac must be int32")
-    if audio.dim() != 1 or whole.dim() != 1 or whole.shape != frac.shape:
-        raise ValueError("heads_read kernel: wants audio [n], whole [T], "
-                         "frac [T]")
+        raise TypeError("scrub_read kernel: whole and frac must be int32")
+    if out.dtype not in (torch.float32, torch.int16):
+        raise TypeError("scrub_read kernel: out must be float32 or int16")
+    if any(t.dim() != 1 for t in tensors) \
+            or not whole.shape == frac.shape == out.shape:
+        raise ValueError("scrub_read kernel: wants audio [n], whole [T], "
+                         "frac [T], env_blocks [B], out [T]")
     ow, of = [int(v) for v in off_whole], [int(v) for v in off_frac]
     if not 1 <= len(ow) == len(of) <= MAX_HEADS:
-        raise ValueError(f"heads_read kernel: {len(ow)} / {len(of)} head "
+        raise ValueError(f"scrub_read kernel: {len(ow)} / {len(of)} head "
                          f"offsets (1 to {MAX_HEADS})")
     if summed and any(of):
-        raise ValueError("heads_read kernel: the summed form takes integer "
+        raise ValueError("scrub_read kernel: the summed form takes integer "
                          "head offsets only")
-    n, T = audio.shape[0], whole.shape[0]
+    n, T = audio.shape[0], out.shape[0]
     if not 0 < n < 2 ** 31:
-        raise ValueError(f"heads_read kernel: audio length {n}")
-    out = torch.empty(T, dtype=torch.float32, device=audio.device)
-    if T == 0:
+        raise ValueError(f"scrub_read kernel: audio length {n}")
+    if T >= 2 ** 30:
+        raise ValueError(f"scrub_read kernel: {T} samples (at most 2**30)")
+    if not (0 <= t0 <= t1 <= T and block_size >= 1):
+        raise ValueError(f"scrub_read kernel: samples [{t0}, {t1}) of {T}, "
+                         f"block size {block_size}")
+    if t1 > t0 and (t1 - 1) // block_size >= env_blocks.shape[0]:
+        raise ValueError(f"scrub_read kernel: {env_blocks.shape[0]} "
+                         f"envelope blocks of {block_size} for {t1} samples")
+    if t1 == t0:
         return out
     lib = _lib("lerp_read")
     heads = ctypes.c_int * len(ow)
     with torch.cuda.device(audio.device):
         stream = torch.cuda.current_stream(audio.device).cuda_stream
-        rc = lib.hr_launch(audio.data_ptr(), whole.data_ptr(),
-                           frac.data_ptr(), out.data_ptr(), T, n, len(ow),
-                           heads(*ow), heads(*of), int(bool(summed)),
-                           float(gain), stream)
+        rc = lib.sr_launch(audio.data_ptr(), n, whole.data_ptr(),
+                           frac.data_ptr(), env_blocks.data_ptr(),
+                           int(block_size), out.data_ptr(),
+                           int(out.dtype == torch.int16), int(t0), int(t1),
+                           len(ow), heads(*ow), heads(*of),
+                           int(bool(summed)), float(gain), stream)
     if rc != 0:
-        raise RuntimeError("heads_read kernel launch failed: "
+        raise RuntimeError("scrub_read kernel launch failed: "
                            + lib.lr_error_string(rc).decode())
-    heads_read.launches += 1
+    scrub_read.launches += 1
     return out
 
 
-heads_read.launches = 0
+scrub_read.launches = 0

@@ -12,9 +12,11 @@ scrubbing as an offline render.
   ``build_scrub_program_cached`` (LRU-8 on object identity);
 - device: ``_inc_device`` (detmath LFO sines in sig12 pairs, counter-noise
   stretch jitter) and ``_positions`` (segmented fixed-point prefix sum),
-  bit-exact with the JAX package; the linear read through
-  ``ops/lerp_read.heads_read`` (the CUDA kernel on the card), the sinc
-  read through ``ops/fixq.gather_sinc_wrap``; the envelope and PCM16.
+  bit-exact with the JAX package; the linear read, the envelope and
+  PCM16 through ``ops/lerp_read.scrub_read`` (one fused CUDA kernel launch
+  per head layout on the card, into one output buffer); the sinc read
+  through ``ops/fixq.gather_sinc_wrap``, then the envelope and PCM16
+  (``_finish``).
 
 The linear read keeps the JAX package's branch: when the blockwise read
 applies (``T % 128 == 0``, ``n > 2 * span * 128 + 32``) and every head
@@ -40,7 +42,7 @@ import torch
 
 from ..ops import detmath, fixq, noise
 from ..ops.fixq import round_sig12, round_sig12_np
-from ..ops.lerp_read import heads_read
+from ..ops.lerp_read import scrub_read
 
 # Config constants (scrubber_0.7.py:35-75)
 DEFAULT_HEAD_OFFSETS = (-2000.0, 0.0, 2000.0)
@@ -411,27 +413,37 @@ def reads_summed(T: int, n: int, span_blocks: int, off_frac,
             and interp == "linear" and not np.any(off_frac))
 
 
-def _read(audio: torch.Tensor, whole: torch.Tensor, frac: torch.Tensor,
-          off_whole, off_frac, gain: float, span_blocks: int,
-          interp: str) -> torch.Tensor:
-    """One head layout's read of [T] positions, scaled by ``gain``: the
-    sinc read per head, or the linear read in form A or B (any interp but
-    "sinc" reads linearly, as in the JAX package)."""
+def _read_sinc(audio: torch.Tensor, whole: torch.Tensor,
+               frac: torch.Tensor, off_whole, off_frac,
+               gain: float) -> torch.Tensor:
+    """One head layout's sinc read of [T] positions, scaled by ``gain``."""
     ow = [int(v) for v in np.asarray(off_whole)]
     of = [int(v) for v in np.asarray(off_frac)]
-    if interp == "sinc":
-        buf = torch.zeros(whole.shape[0], dtype=torch.float32,
-                          device=audio.device)
-        for h in range(len(ow)):
-            f2 = frac + of[h]
-            c2 = f2 >> fixq.POS_FRAC_BITS
-            w2 = whole + ow[h] + c2
-            f2 = f2 - (c2 << fixq.POS_FRAC_BITS)
-            buf = buf + fixq.gather_sinc_wrap(audio, w2, f2)
-        return buf * float(gain)
-    summed = reads_summed(whole.shape[0], audio.shape[0], span_blocks, of,
-                          interp)
-    return heads_read(audio, whole, frac, ow, of, float(gain), summed)
+    buf = torch.zeros(whole.shape[0], dtype=torch.float32,
+                      device=audio.device)
+    for h in range(len(ow)):
+        f2 = frac + of[h]
+        c2 = f2 >> fixq.POS_FRAC_BITS
+        w2 = whole + ow[h] + c2
+        f2 = f2 - (c2 << fixq.POS_FRAC_BITS)
+        buf = buf + fixq.gather_sinc_wrap(audio, w2, f2)
+    return buf * float(gain)
+
+
+def _read_linear(out: torch.Tensor, audio: torch.Tensor, whole: torch.Tensor,
+                 frac: torch.Tensor, env_blocks: torch.Tensor,
+                 block_size: int, t0: int, t1: int, off_whole, off_frac,
+                 gain: float, span_blocks: int, interp: str) -> None:
+    """One head layout's linear read of samples ``t0 .. t1`` (any interp
+    but "sinc" reads linearly, as in the JAX package), scaled by ``gain``,
+    with the envelope and, into an int16 ``out``, PCM16: written into
+    ``out`` in form A or B, as the JAX package picks for a read of
+    ``t1 - t0`` samples."""
+    ow = [int(v) for v in np.asarray(off_whole)]
+    of = [int(v) for v in np.asarray(off_frac)]
+    summed = reads_summed(t1 - t0, audio.shape[0], span_blocks, of, interp)
+    scrub_read(audio, whole, frac, ow, of, float(gain), summed, env_blocks,
+               block_size, out, t0, t1)
 
 
 def _positions(base_inc_q, js_q, seed, mod_consts, jump_flags,
@@ -460,12 +472,19 @@ def _positions(base_inc_q, js_q, seed, mod_consts, jump_flags,
 
 def _finish(buf: torch.Tensor, env_blocks: torch.Tensor, block_size: int,
             out_i16: bool) -> torch.Tensor:
-    """Dropout envelope (block-repeated) and optional PCM16."""
+    """Dropout envelope (block-repeated) and optional PCM16 of the sinc
+    read (the linear read does both in ``scrub_read``)."""
     y = buf * env_blocks.repeat_interleave(block_size)
     if out_i16:
         return torch.clamp(torch.round(y * 32768.0), -32768.0,
                            32767.0).to(torch.int16)
     return y
+
+
+def _out(T: int, out_i16: bool, device) -> torch.Tensor:
+    """An uninitialized render buffer: int16 for PCM16, else f32."""
+    return torch.empty(T, dtype=torch.int16 if out_i16 else torch.float32,
+                       device=device)
 
 
 def _as(x, dtype, device) -> torch.Tensor:
@@ -489,16 +508,21 @@ def scrub_render_kernel(audio, base_inc_q, js_q, seed, mod_consts,
     (moved to ``device`` if they lie elsewhere); ``mod_consts`` and the head
     offsets stay on the host.  The JAX package's ``heads_integer`` flag is
     not taken: the read works it out from ``head_off_frac``."""
-    audio = _as(audio, np.float32, device)
+    audio = _as(audio, np.float32, device).contiguous()
+    env = _as(env_blocks, np.float32, device).contiguous()
     whole, frac = _positions(
         _as(base_inc_q, np.float32, device), _as(js_q, np.float32, device),
         int(seed), mod_consts, _as(jump_flags, np.bool_, device),
         _as(seg_bases_whole, np.int32, device),
         _as(seg_bases_frac, np.int32, device), block_size)
-    buf = _read(audio, whole, frac, head_off_whole, head_off_frac,
-                float(np.float32(head_gain)), span_blocks, interp)
-    y = _finish(buf, _as(env_blocks, np.float32, device), block_size,
-                out_i16)
+    gain = float(np.float32(head_gain))
+    if interp == "sinc":
+        y = _finish(_read_sinc(audio, whole, frac, head_off_whole,
+                               head_off_frac, gain), env, block_size, out_i16)
+    else:
+        y = _out(whole.shape[0], out_i16, audio.device)
+        _read_linear(y, audio, whole, frac, env, block_size, 0, y.shape[0],
+                     head_off_whole, head_off_frac, gain, span_blocks, interp)
     return torch.stack([y, y], dim=-1) if stereo else y
 
 
@@ -508,20 +532,27 @@ def scrub_render_segments(prog: dict, span_blocks: int,
                           device="cuda") -> torch.Tensor:
     """Live-control render: one position pass, then each control segment
     (``prog["head_segments"]``) read with its own head layout, gain and
-    read form (one kernel launch per segment on the card), concatenated."""
+    read form into its samples of one output buffer (one fused kernel
+    launch per segment on the card)."""
     dp = device_program(prog, device)
     bs = int(prog["block_size"])
     whole, frac = _positions(dp["base_inc_q"], dp["js_q"], prog["seed"],
                              prog["mod_consts"], dp["jump_flags"],
                              dp["seg_bases_whole"], dp["seg_bases_frac"], bs)
-    parts = []
-    for s in prog["head_segments"]:
-        t0, t1 = int(s["b0"]) * bs, int(s["b1"]) * bs
-        parts.append(_read(dp["audio"], whole[t0:t1], frac[t0:t1],
-                           s["off_whole"], s["off_frac"], float(s["gain"]),
-                           span_blocks, interp))
-    buf = torch.cat(parts) if len(parts) > 1 else parts[0]
-    y = _finish(buf, dp["env_blocks"], bs, out_i16)
+    segs = [(int(s["b0"]) * bs, int(s["b1"]) * bs, s)
+            for s in prog["head_segments"]]
+    if interp == "sinc":
+        parts = [_read_sinc(dp["audio"], whole[t0:t1], frac[t0:t1],
+                            s["off_whole"], s["off_frac"], float(s["gain"]))
+                 for t0, t1, s in segs]
+        buf = torch.cat(parts) if len(parts) > 1 else parts[0]
+        y = _finish(buf, dp["env_blocks"], bs, out_i16)
+    else:
+        y = _out(whole.shape[0], out_i16, whole.device)
+        for t0, t1, s in segs:
+            _read_linear(y, dp["audio"], whole, frac, dp["env_blocks"], bs,
+                         t0, t1, s["off_whole"], s["off_frac"],
+                         float(s["gain"]), span_blocks, interp)
     return torch.stack([y, y], dim=-1) if stereo else y
 
 
@@ -541,7 +572,8 @@ def device_program(prog: dict, device="cuda") -> dict:
                                      device),
               "seg_bases_frac": _as(prog["seg_bases_frac"], np.int32,
                                     device),
-              "env_blocks": _as(prog["env_blocks"], np.float32, device)}
+              "env_blocks": _as(prog["env_blocks"], np.float32,
+                                device).contiguous()}
         memo[key] = dp
     return dp
 

@@ -17,10 +17,10 @@ PyTorch version ``lerp_read_plain``.  Both evaluate the formula in the
 order written above with one IEEE rounding per operation (no fused
 multiply-add), so the two are bit-identical.
 
-``heads_read`` is the same read in the scrub engine's form: positions
-wrap around the tape, one to three heads at fixed offsets, and the head
-gain.  It keeps the JAX package's two arithmetics (models/scrub.py), which
-round differently and are kept apart:
+``heads_read_plain`` is the same read in the scrub engine's form:
+positions wrap around the tape, one to three heads at fixed offsets, and
+the head gain.  It keeps the JAX package's two arithmetics
+(models/scrub.py), which round differently and are kept apart:
 
 - ``summed`` (form A, ``_read_blockwise_heads``, integer head offsets):
   the heads' samples are summed first, then one lerp,
@@ -31,10 +31,17 @@ round differently and are kept apart:
   summed.
 
 Both sums start from 0 and run in head order; the result is scaled by
-``gain``.  ``heads_read`` dispatches like ``lerp_read``: the CUDA kernel
-for CUDA tensors, ``heads_read_plain`` for CPU tensors, bit-identical.
+``gain``.  ``scrub_read`` is the scrub render's whole tail over samples
+``t0 .. t1`` of a render: that read, then the block envelope
+``env_blocks[g // block_size]`` of sample g and, into an int16 output,
+PCM16, each op rounded once in the JAX package's order.  It dispatches like
+``lerp_read``: the fused CUDA kernel for CUDA tensors,
+``scrub_read_plain`` (``heads_read_plain`` followed by the envelope and
+PCM16 step) for CPU tensors, bit-identical.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -104,8 +111,8 @@ def _check_heads(audio, whole, frac, off_whole, off_frac, summed):
 def heads_read_plain(audio: torch.Tensor, whole: torch.Tensor,
                      frac: torch.Tensor, off_whole, off_frac, gain: float,
                      summed: bool) -> torch.Tensor:
-    """The plain PyTorch version of the multi-head read: the CPU path, and
-    the reference the CUDA kernel is held against.  ``off_whole`` and
+    """The plain PyTorch version of the multi-head read, scaled by the
+    gain: the first step of ``scrub_read_plain``.  ``off_whole`` and
     ``off_frac`` are host ints, one per head; ``gain`` an f32 value."""
     _check_heads(audio, whole, frac, off_whole, off_frac, summed)
     n = audio.shape[0]
@@ -132,15 +139,59 @@ def heads_read_plain(audio: torch.Tensor, whole: torch.Tensor,
     return y * float(gain)
 
 
-def heads_read(audio: torch.Tensor, whole: torch.Tensor, frac: torch.Tensor,
-               off_whole, off_frac, gain: float,
-               summed: bool) -> torch.Tensor:
-    """The scrub's multi-head read as a new f32 [T] tensor.  CUDA tensors
-    run the CUDA kernel (a failed build or launch raises); CPU tensors run
-    ``heads_read_plain``."""
-    if audio.device.type == "cpu":
-        return heads_read_plain(audio, whole, frac, off_whole, off_frac,
-                                gain, summed)
+def _check_scrub(audio, whole, frac, off_whole, off_frac, summed,
+                 env_blocks, block_size, out, t0, t1):
     _check_heads(audio, whole, frac, off_whole, off_frac, summed)
-    return kernels.heads_read(audio, whole, frac, off_whole, off_frac, gain,
-                              summed)
+    if out.dim() != 1 or out.shape != whole.shape:
+        raise ValueError(f"scrub_read writes an output of the positions' "
+                         f"shape {tuple(whole.shape)}, not {tuple(out.shape)}")
+    if out.dtype not in (torch.float32, torch.int16):
+        raise TypeError("scrub_read writes float32 or int16 (PCM16)")
+    if env_blocks.dim() != 1 or env_blocks.dtype != torch.float32:
+        raise TypeError("scrub_read wants a float32 envelope [blocks]")
+    if not (audio.device == out.device == env_blocks.device):
+        raise ValueError("audio, env_blocks and out must share one device")
+    if not (0 <= t0 <= t1 <= out.shape[0] and block_size >= 1):
+        raise ValueError(f"samples [{t0}, {t1}) of {out.shape[0]}, block "
+                         f"size {block_size}")
+    if t1 > t0 and (t1 - 1) // block_size >= env_blocks.shape[0]:
+        raise ValueError(f"{env_blocks.shape[0]} envelope blocks of "
+                         f"{block_size} do not cover {t1} samples")
+
+
+def scrub_read_plain(audio: torch.Tensor, whole: torch.Tensor,
+                     frac: torch.Tensor, off_whole, off_frac, gain: float,
+                     summed: bool, env_blocks: torch.Tensor, block_size: int,
+                     out: torch.Tensor, t0: int = 0,
+                     t1: Optional[int] = None) -> torch.Tensor:
+    """The plain PyTorch version of the fused scrub read: the CPU path, and
+    the reference the CUDA kernel is held against.  Writes samples
+    ``t0 .. t1`` (default: to the end) of ``out`` and returns ``out``."""
+    t1 = out.shape[0] if t1 is None else t1
+    _check_scrub(audio, whole, frac, off_whole, off_frac, summed,
+                 env_blocks, block_size, out, t0, t1)
+    y = heads_read_plain(audio, whole[t0:t1], frac[t0:t1], off_whole,
+                         off_frac, gain, summed)
+    g = torch.arange(t0, t1, device=out.device)
+    y = y * env_blocks[torch.div(g, block_size, rounding_mode="floor")]
+    if out.dtype == torch.int16:
+        y = torch.clamp(torch.round(y * 32768.0), -32768.0, 32767.0)
+    out[t0:t1] = y.to(out.dtype)
+    return out
+
+
+def scrub_read(audio: torch.Tensor, whole: torch.Tensor, frac: torch.Tensor,
+               off_whole, off_frac, gain: float, summed: bool,
+               env_blocks: torch.Tensor, block_size: int, out: torch.Tensor,
+               t0: int = 0, t1: Optional[int] = None) -> torch.Tensor:
+    """The scrub's read, envelope and PCM16 of samples ``t0 .. t1`` into
+    ``out`` (f32, or int16 for PCM16), returned.  CUDA tensors run the
+    fused CUDA kernel (a failed build or launch raises; the kernel's
+    wrapper checks its inputs); CPU tensors run ``scrub_read_plain``."""
+    if audio.device.type == "cpu":
+        return scrub_read_plain(audio, whole, frac, off_whole, off_frac,
+                                gain, summed, env_blocks, block_size, out,
+                                t0, t1)
+    t1 = out.shape[0] if t1 is None else t1
+    return kernels.scrub_read(audio, whole, frac, off_whole, off_frac, gain,
+                              summed, env_blocks, block_size, out, t0, t1)

@@ -50,17 +50,22 @@ Phases:
    ``run()`` (memoized prepare, PCM16 render, pull), the render's device
    time, a fresh prepare, and one ``torch.profiler`` window (device events
    and device-busy time per render, the top kernels);
-6. scrub: the lerp-read kernel's wrap-around multi-head form against its
-   plain version at the full-size render's own positions (bit-equal in
-   both forms, timed in the render's, with its bound; no one PyTorch call
-   computes the read); the PCM16 and float renders through
-   ``render_scrub`` with every launch counted (one per render); output
-   checks; the float render bit-equal to one made with the plain read;
-   the smoke size (plain and with the drags and jump scaled into it) and
-   the ``scrub_keys`` golden within -120 dBFS of the CPU render, the
-   ``scrub_sinc`` golden within -100 dBFS; timing of the bench's
-   ``run()`` (cached program, PCM16 render, pull, host stereo), the
-   render's device time, a fresh program, and one profiler window.
+6. scrub: the fused scrub-read kernel (``lerp_read.cu``'s wrap-around
+   multi-head read with the envelope and PCM16) against its plain version
+   at the full-size render's own positions, bit-equal in both forms and
+   both outputs, and on a synthetic case that forces its fallbacks
+   (positions outside [0, 2n), carries that take the 64-bit mod, a launch
+   off the 32-sample grid with a ragged end); timed warm and L2
+   flushed in PCM16 and f32 with their bounds, beside the timing
+   protocol's floor (an empty ``torch.cuda._sleep(0)`` timed the same
+   two ways; no one PyTorch call computes the read); the PCM16 and float
+   renders through ``render_scrub`` with every launch counted (one per
+   render); output checks; the float render bit-equal to one made with
+   the plain read; the smoke size (plain and with the drags and jump
+   scaled into it) and the ``scrub_keys`` golden within -120 dBFS of the
+   CPU render, the ``scrub_sinc`` golden within -100 dBFS; timing of the
+   bench's ``run()`` (cached program, PCM16 render, pull, host stereo),
+   the render's device time, a fresh program, and one profiler window.
 
 Every kernel's launch count is set to 0 just before a path is driven and
 read just after it.  A kernel is timed twice.  Warm (its ``ms``, the
@@ -81,8 +86,10 @@ line before it holds the card's name and power limit from nvidia-smi, and
 the one before that the kernels' table as JSON.  Imports nothing of JAX or
 of the JAX package.
 """
+import ctypes
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -104,8 +111,8 @@ FLUSH_BYTES = 256 << 20    # read before each L2-flushed call (L2: 50 MB)
 HBM_BYTES_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOP_S = 67e12         # H100 SXM f32 rate outside the tensor cores
 KERNELS = ("overlap_add", "lerp_read")     # sources, one nvcc each
-# launch-counting wrappers: lerp_read.cu's two forms count apart
-WRAPPERS = ("overlap_add", "lerp_read", "heads_read")
+# launch-counting wrappers: lerp_read.cu's two kernels count apart
+WRAPPERS = ("overlap_add", "lerp_read", "scrub_read")
 TAPE_SECONDS = 180.0   # bench config 1's tape and target length
 TAPE_FRAMES = 8745204  # its output frames after the retime
 PL_SECONDS = 8.0       # bench config 4's render length
@@ -203,6 +210,20 @@ def config2(seconds: float, audio_seconds: float, scale: float = 1.0):
                      ((2.0, 8.0, 3.0), (10.0, -14.0, 4.0), (20.0, 4.0, 5.0))],
         base_speed=0.5, jumps=[(15.0 * scale, 1000.0)])
     return bench_audio(sr, audio_seconds), cfg, trace
+
+
+def config2_positions(dev):
+    """Bench config 2 at full size on ``dev``: (prog, device program,
+    whole, frac), the render's own positions."""
+    from audio_suite_torch.models import scrub
+    audio, cfg, trace = config2(SCRUB_SECONDS, SCRUB_TAPE)
+    prog = scrub.build_scrub_program_cached(audio, cfg, trace)
+    dp = scrub.device_program(prog, dev)
+    whole, frac = scrub._positions(
+        dp["base_inc_q"], dp["js_q"], prog["seed"], prog["mod_consts"],
+        dp["jump_flags"], dp["seg_bases_whole"], dp["seg_bases_frac"],
+        prog["block_size"])
+    return prog, dp, whole, frac
 
 
 def scrub_golden(name: str):
@@ -341,6 +362,68 @@ def profile_renders(fn, renders: int) -> dict:
             "top": [(name.replace("at::native::", "")[:160],
                      t / 1e3 / renders, c / renders)
                     for name, (t, c) in top]}
+
+
+def ptxas_summary(so: str) -> list:
+    """Each kernel's registers, shared memory and spills, from the
+    ``-Xptxas -v`` report that ``kernels.build`` keeps beside the library
+    (a mangled name's template arguments shown as <3,1,0>)."""
+    with open(so[:-3] + ".log") as f:
+        log = f.read()
+    rows, entry, spill = [], "?", ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+            short = re.search(r"\d+([a-z_]+kernel)(I(?:L[bi]\d+E)+E)?",
+                              name)
+            entry = name if not short else short.group(1) + (
+                "<" + ",".join(re.findall(r"L[bi](\d+)E", short.group(2)))
+                + ">" if short.group(2) else "")
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln:
+            rows.append(f"{entry}: {ln.split(':', 1)[1].strip()}; {spill}")
+    return rows
+
+
+def build_ab(name: str, src: str):
+    """For the A/B scripts (``oa_ab.py``, ``read_ab.py``): ``src`` built
+    with the port's nvcc flags into the git-ignored ``kernels/_build/`` as
+    ``<name>.so``, with its ptxas report beside it; returns (the ctypes
+    library, unbound, and its ``ptxas_summary``)."""
+    from audio_suite_torch import kernels
+    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    so = os.path.join(kernels.BUILD_DIR, name + ".so")
+    proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas",
+                           "-v", "-o", so, src],
+                          capture_output=True, text=True, timeout=600)
+    with open(so[:-3] + ".log", "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed to build {src}:\n{proc.stderr}")
+    return ctypes.CDLL(so), ptxas_summary(so)
+
+
+def in_turns(fns: dict, rounds: int, bound: float) -> dict:
+    """For the A/B scripts: each fn() of ``fns`` timed warm (``kernel_ms``)
+    and L2 flushed (``flushed_ms``) in turns, A B .. B A, ``rounds`` times;
+    label -> the medians, their shares of the ``bound`` (ms) and the times
+    in turns."""
+    warm = {k: [] for k in fns}
+    cold = {k: [] for k in fns}
+    for k in (list(fns) + list(fns)[::-1]) * rounds:
+        warm[k].append(kernel_ms(fns[k], TIMED_KERNEL_RUNS, KERNEL_LAUNCHES))
+        cold[k].append(flushed_ms(fns[k], KERNEL_LAUNCHES))
+    rows = {}
+    for k in fns:
+        w, c = statistics.median(warm[k]), statistics.median(cold[k])
+        rows[k] = {"warm_ms": w, "l2_flushed_ms": c,
+                   "share_of_bound_warm": bound / w,
+                   "share_of_bound_l2_flushed": bound / c,
+                   "warm_ms_in_turns": warm[k],
+                   "l2_flushed_ms_in_turns": cold[k]}
+    return rows
 
 
 def bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
@@ -755,9 +838,28 @@ def patternlab_path(dev, card: str) -> dict:
             "library_ms": library_ms}
 
 
+def scrub_fallback_case(dev, n: int, T: int):
+    """A synthetic fused read that takes every fallback of the kernel:
+    positions spread over [-3n, 3n) (outside [0, 2n): the 32-bit mod),
+    form B fractions outside [0, 2**22) (carries other than 0 or 1: the
+    64-bit mod), rows one element off the 16-byte grid, a launch that
+    starts off the 32-sample grid and ends in a ragged tile, a block size
+    of 1 000 (the division, not the shift): (audio, whole, frac, env)."""
+    rng = np.random.default_rng(17)
+    audio = torch.tensor(rng.uniform(-1, 1, n).astype(np.float32),
+                         device=dev)
+    raw = torch.tensor(np.stack([
+        rng.integers(-3 * n, 3 * n, T + 1),
+        rng.integers(-(1 << 27), 1 << 27, T + 1)]).astype(np.int32),
+        device=dev)
+    env = torch.tensor(rng.choice(np.float32([0.0, 0.65, 1.0, 2.5]),
+                                  -(-T // 1000)), device=dev)
+    return audio, raw[0, 1:], raw[1, 1:], env
+
+
 def scrub_path(dev, card: str) -> dict:
-    """Phase 6: the scrub config-2 path; returns the lerp-read kernel's
-    figures in its wrap-around multi-head form at config 2."""
+    """Phase 6: the scrub config-2 path; returns the fused scrub-read
+    kernel's row."""
     from audio_suite_torch import kernels
     from audio_suite_torch.models import scrub
     from audio_suite_torch.ops import lerp_read as lr
@@ -765,6 +867,7 @@ def scrub_path(dev, card: str) -> dict:
     audio, cfg, trace = config2(SCRUB_SECONDS, SCRUB_TAPE)
     prog = scrub.build_scrub_program_cached(audio, cfg, trace)
     T, span = prog["num_frames"], scrub.program_span(prog)
+    bs = prog["block_size"]
     segs = prog["head_segments"]
     if T != SCRUB_FRAMES or len(segs) != 1:
         raise AssertionError(f"config 2 renders {T} frames in {len(segs)} "
@@ -780,42 +883,102 @@ def scrub_path(dev, card: str) -> dict:
           f"{int((prog['env_blocks'] < 1).sum())} dropout blocks",
           flush=True)
 
-    # kernel vs plain at the full-size render's own positions
-    dp = scrub.device_program(prog, dev)
-    whole, frac = scrub._positions(
-        dp["base_inc_q"], dp["js_q"], prog["seed"], prog["mod_consts"],
-        dp["jump_flags"], dp["seg_bases_whole"], dp["seg_bases_frac"],
-        prog["block_size"])
-    a = dp["audio"]
+    # the fused kernel vs its plain version at the full-size render's own
+    # positions: both forms, both outputs
+    _, dp, whole, frac = config2_positions(dev)
+    a, env = dp["audio"], dp["env_blocks"]
+    outs = {"pcm16": torch.int16, "f32": torch.float32}
+
+    def fused(dtype, summed, read=kernels.scrub_read):
+        return read(a, whole, frac, ow, of, gain, summed, env, bs,
+                    torch.empty(T, dtype=dtype, device=dev), 0, T)
+
     errs = []
-    for form in (True, False):            # A, the render's; B for coverage
-        want = lr.heads_read_plain(a, whole, frac, ow, of, gain, form)
-        got = kernels.heads_read(a, whole, frac, ow, of, gain, form)
-        torch.cuda.synchronize()
-        errs.append((got - want).abs().max().item())
-        if not torch.equal(got, want):
-            raise AssertionError(f"heads_read kernel (form "
-                                 f"{'A' if form else 'B'}) differs from its "
-                                 f"plain version: max |err| {errs[-1]}")
-    hr_ms = kernel_ms(lambda: kernels.heads_read(a, whole, frac, ow, of,
-                                                 gain, True),
-                      TIMED_KERNEL_RUNS, KERNEL_LAUNCHES)
-    cold_ms = flushed_ms(lambda: kernels.heads_read(a, whole, frac, ow, of,
-                                                    gain, True),
-                         KERNEL_LAUNCHES)
-    plain_ms = cuda_ms(lambda: lr.heads_read_plain(a, whole, frac, ow, of,
-                                                   gain, True),
-                       TIMED_KERNEL_RUNS)
-    nbytes = 4 * (a.numel() + 3 * T)
-    # per sample: two adds a head, the lerp's four operations, the gain
-    bound, bound_by = bound_ms(nbytes, T * (2 * len(ow) + 5))
-    print(f"heads_read: n {a.numel()} T {T} heads {len(ow)} "
-          f"({nbytes / 1e6:.2f} MB): forms A and B bit-equal to plain; "
-          f"kernel warm {hr_ms:.4f} ms ({bound / hr_ms:.1%} of its "
-          f"{bound:.4f} ms bound by {bound_by}), L2 flushed {cold_ms:.4f} "
-          f"ms ({bound / cold_ms:.1%}); plain {plain_ms:.4f} ms (one event "
-          f"pair per call) {card}", flush=True)
-    print("heads_read: no library time: no one PyTorch call computes the "
+    for summed in (True, False):          # A, the render's; B for coverage
+        for label, dtype in outs.items():
+            want = fused(dtype, summed, lr.scrub_read_plain)
+            got = fused(dtype, summed)
+            torch.cuda.synchronize()
+            errs.append((got.float() - want.float()).abs().max().item())
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"scrub_read kernel (form {'A' if summed else 'B'}, "
+                    f"{label}) differs from its plain version: max |err| "
+                    f"{errs[-1]}")
+    # the plain version is the unfused read followed by the render's tail
+    y = lr.heads_read_plain(a, whole, frac, ow, of, gain, True)
+    for label, dtype in outs.items():
+        if not torch.equal(scrub._finish(y, env, bs, dtype == torch.int16),
+                           fused(dtype, True, lr.scrub_read_plain)):
+            raise AssertionError(f"scrub_read_plain ({label}) differs from "
+                                 "_finish(heads_read_plain(...))")
+    n = a.numel()
+    in_2n = bool(((whole >= 0) & (whole < 2 * n)).all())
+
+    # the synthetic case that forces the fallbacks
+    fa, fw, ff, fe = scrub_fallback_case(dev, 20011, 100003)
+    for summed in (True, False):
+        o_f = [0, 0, 0] if summed else [4194303, 1 << 21, 0]
+        for label, dtype in outs.items():
+            got, want = (read(fa, fw, ff, ow, o_f, gain, summed, fe, 1000,
+                              torch.full((fw.numel(),), 7, dtype=dtype,
+                                         device=dev), 13, fw.numel() - 5)
+                         for read in (kernels.scrub_read,
+                                      lr.scrub_read_plain))
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"scrub_read kernel differs from its plain version on "
+                    f"the fallback case (form {'A' if summed else 'B'}, "
+                    f"{label})")
+    print(f"scrub_read: bit-equal to plain in forms A and B, PCM16 and f32, "
+          f"at config 2 (positions {int(whole.min())} .. {int(whole.max())}"
+          f", all in [0, 2n): {in_2n}) and on the fallback case (n "
+          f"{fa.numel()}, {fw.numel()} positions in [-3n, 3n), carries "
+          f"outside 0..1, rows off the 16-byte grid, samples 13 .. "
+          f"{fw.numel() - 5}, blocks of 1 000)", flush=True)
+
+    # timing, in the render's form A: warm, L2 flushed, the plain version,
+    # and the protocol's floor; bytes and operations from this run's
+    # tensors (per sample: two adds a head, the fraction, the lerp's four
+    # operations, gain, envelope; PCM16 scale, round, clamp, convert)
+    times = {}
+    for label, dtype in outs.items():
+        out = torch.empty(T, dtype=dtype, device=dev)
+        nbytes = (a.nbytes + whole.nbytes + frac.nbytes + env.nbytes
+                  + out.nbytes)
+        ops = T * (2 * len(ow) + 7 + (5 if dtype == torch.int16 else 0))
+        bound, bound_by = bound_ms(nbytes, ops)
+
+        def launch(out=out):
+            kernels.scrub_read(a, whole, frac, ow, of, gain, True, env, bs,
+                               out, 0, T)
+
+        times[label] = {
+            "ms": kernel_ms(launch, TIMED_KERNEL_RUNS, KERNEL_LAUNCHES),
+            "ms_l2_flushed": flushed_ms(launch, KERNEL_LAUNCHES),
+            "plain_ms": cuda_ms(lambda out=out: lr.scrub_read_plain(
+                a, whole, frac, ow, of, gain, True, env, bs, out),
+                TIMED_KERNEL_RUNS),
+            "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
+            "ops": ops}
+    floor = {"ms": kernel_ms(lambda: torch.cuda._sleep(0), TIMED_KERNEL_RUNS,
+                             KERNEL_LAUNCHES),
+             "ms_l2_flushed": flushed_ms(lambda: torch.cuda._sleep(0),
+                                         KERNEL_LAUNCHES)}
+    for label, t in times.items():
+        print(f"scrub_read {label}: n {a.numel()} T {T} heads {len(ow)} "
+              f"({t['bytes'] / 1e6:.2f} MB, {t['ops']} operations): warm "
+              f"{t['ms']:.4f} ms ({t['bound_ms'] / t['ms']:.1%} of its "
+              f"{t['bound_ms']:.4f} ms bound by {t['bound_by']}), L2 "
+              f"flushed {t['ms_l2_flushed']:.4f} ms "
+              f"({t['bound_ms'] / t['ms_l2_flushed']:.1%}); plain "
+              f"{t['plain_ms']:.4f} ms (one event pair per call) {card}",
+              flush=True)
+    print(f"scrub_read: the protocol's floor, an empty torch.cuda._sleep(0) "
+          f"timed the same ways: warm {floor['ms']:.4f} ms, L2 flushed "
+          f"{floor['ms_l2_flushed']:.4f} ms {card}", flush=True)
+    print("scrub_read: no library time: no one PyTorch call computes the "
           "wrap-around multi-head read (grid_sample wants normalised "
           "float32 coordinates and has no wrap at a tape's length)",
           flush=True)
@@ -840,15 +1003,15 @@ def scrub_path(dev, card: str) -> dict:
         -32768, 32767) - y16).max())
     if lsb != 0:
         raise AssertionError(f"PCM16 render is {lsb} LSB from the float one")
-    if launches["heads_read"] != renders:
-        raise AssertionError(f"{launches['heads_read']} heads_read launches "
+    if launches["scrub_read"] != renders:
+        raise AssertionError(f"{launches['scrub_read']} scrub_read launches "
                              f"for {renders} renders")
     print(f"render: {T} frames f32 peak {np.abs(y).max():.4f}, PCM16 peak "
           f"{peak16}; kernel launches {launches}", flush=True)
 
     y_kernel = scrub.render_scrub(audio, cfg, trace, device=dev,
                                   device_out=True)
-    with mock.patch.object(scrub, "heads_read", lr.heads_read_plain):
+    with mock.patch.object(scrub, "scrub_read", lr.scrub_read_plain):
         y_plain = scrub.render_scrub(audio, cfg, trace, device=dev,
                                      device_out=True)
     if not torch.equal(y_kernel, y_plain):
@@ -916,12 +1079,22 @@ def scrub_path(dev, card: str) -> dict:
         print("profile: the profiler saw no device event; launches and "
               "busy time not measured", flush=True)
 
-    return {"launches": launches["heads_read"],
-            "launches_per_render": launches["heads_read"] / renders,
-            "shape": [a.numel(), T, len(ow)], "form": "A",
-            "max_abs_err": max(errs), "ms": hr_ms, "ms_l2_flushed": cold_ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": None}
+    t16 = times["pcm16"]
+    return {"name": "scrub_read", "route": "cuda",
+            "source": "audio_suite_torch/kernels/lerp_read.cu",
+            # the JAX scrub reaches no Pallas kernel: this is its XLA read
+            # (to :512) and, at :639-651, its gain, envelope and PCM16
+            "replaces": "audio_suite_tpu/models/scrub.py:411",
+            "launches": launches["scrub_read"],
+            "launches_per_render": launches["scrub_read"] / renders,
+            "shape": [a.numel(), T, len(ow)], "form": "A", "out": "pcm16",
+            "max_abs_err": max(errs), "ms": t16["ms"],
+            "ms_l2_flushed": t16["ms_l2_flushed"],
+            "plain_ms": t16["plain_ms"], "bound_ms": t16["bound_ms"],
+            "bound_by": t16["bound_by"], "library_ms": None,
+            "f32": times["f32"], "floor": floor,
+            "events_per_render": prof.get("events_per_render"),
+            "busy_ms_per_render": prof.get("busy_ms_per_render")}
 
 
 def main() -> int:
@@ -945,26 +1118,24 @@ def main() -> int:
         built = dict(zip(KERNELS, pool.map(kernels.build, KERNELS)))
     for k, so in built.items():
         print(f"build: {k}.cu -> {os.path.relpath(so, REPO)}", flush=True)
+        for row in ptxas_summary(so):
+            print(f"build:   ptxas {row}", flush=True)
     print(f"build: {len(built)} kernels in {time.perf_counter() - t0:.2f} s",
           flush=True)
 
     # ---- 3.-6. the paths; the overlap-add runs on two of them, so its
     # row counts the launches of both and holds config 4's figures; the
-    # lerp read likewise, in its clamp form (tape) and its wrap-around
-    # multi-head form (scrub), whose figures it holds as config2
+    # lerp read's clamp form carries the tape, its fused scrub form (a
+    # second kernel of the same source) the scrub
     oa_row = microsound_path(dev, card)
     lr_row = tape_path(dev, card)
     pl_oa = patternlab_path(dev, card)
-    sc_lr = scrub_path(dev, card)
+    sr_row = scrub_path(dev, card)
     oa_row["launches_by_path"] = {"microsound": oa_row["launches"],
                                   "patternlab": pl_oa["launches"]}
     oa_row["launches"] += pl_oa["launches"]
     oa_row["config4"] = pl_oa
-    lr_row["launches_by_path"] = {"tape": lr_row["launches"],
-                                  "scrub": sc_lr["launches"]}
-    lr_row["launches"] += sc_lr["launches"]
-    lr_row["config2"] = sc_lr
-    rows = [oa_row, lr_row]
+    rows = [oa_row, lr_row, sr_row]
 
     print(json.dumps({"kernels": rows}))
     print(name_limit)

@@ -6,12 +6,13 @@
 Each source must have the C interface of
 ``audio_suite_torch/kernels/overlap_add.cu`` (``oa_launch``,
 ``oa_error_string``); the port's own source joins as ``port``.  Each is
-built with the port's nvcc flags into the git-ignored ``kernels/_build/``,
-checked bit-equal to the plain overlap-add at the full-size Microsound
-config-3 shapes, with the render's starts and with as many starts evenly
-spaced, and timed on each in turns (A B .. B A, ROUNDS times), warm and
-with the L2 flushed before each call, as ``chip_smoke.py`` times a
-kernel; beside them PyTorch's copy of the windows as a yardstick.  Prints
+built with the port's nvcc flags into the git-ignored ``kernels/_build/``
+(``chip_smoke.build_ab``), checked bit-equal to the plain overlap-add at
+the full-size Microsound config-3 shapes, with the render's starts and
+with as many starts evenly spaced, and timed on each in turns (A B .. B
+A, ROUNDS times), warm and with the L2 flushed before each call
+(``chip_smoke.in_turns``); beside them PyTorch's copy of the windows as a
+yardstick.  Prints
 ptxas's register and shared-memory use of each source, the events that
 cover each output tile, and one JSON line of times.  Imports nothing of
 JAX or of the JAX package.
@@ -20,8 +21,6 @@ import ctypes
 import functools
 import json
 import os
-import statistics
-import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
@@ -35,24 +34,13 @@ ROUNDS = 3
 
 def build(label: str, src: str):
     """(library, ptxas summary) of ``src`` built as ``ab_<label>.so``."""
-    from audio_suite_torch import kernels
-    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
-    so = os.path.join(kernels.BUILD_DIR, f"ab_{label}.so")
-    proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas",
-                           "-v", "-o", so, src],
-                          capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {src}:\n{proc.stderr}")
-    lib = ctypes.CDLL(so)
+    lib, ptxas = cs.build_ab(f"ab_{label}", src)
     p = ctypes.c_void_p
     lib.oa_launch.argtypes = [p, p, p, ctypes.c_int, ctypes.c_int,
                               ctypes.c_longlong, p]
     lib.oa_launch.restype = ctypes.c_int
     lib.oa_error_string.argtypes = [ctypes.c_int]
     lib.oa_error_string.restype = ctypes.c_char_p
-    ptxas = " | ".join(ln.split(":", 1)[-1].strip()
-                       for ln in proc.stderr.splitlines()
-                       if "registers" in ln or "spill" in ln)
     return lib, ptxas
 
 
@@ -81,7 +69,8 @@ def main() -> int:
     with ThreadPoolExecutor(len(srcs)) as pool:
         built = dict(zip(srcs, pool.map(build, srcs, srcs.values())))
     for k, (_, ptxas) in built.items():
-        print(f"ptxas {k}: {ptxas}", flush=True)
+        for row in ptxas:
+            print(f"ptxas {k}: {row}", flush=True)
 
     dev = torch.device("cuda", 0)
     E, Lw, N, starts, vals, base = cs.config3_oa_inputs(dev)
@@ -109,20 +98,9 @@ def main() -> int:
                 raise AssertionError(
                     f"{k} differs from the plain version on {name}: max "
                     f"|err| {(got - want).abs().max().item()}")
-        warm = {k: [] for k in built}
-        cold = {k: [] for k in built}
-        for k in (list(built) + list(built)[::-1]) * ROUNDS:
-            fn = functools.partial(launch, built[k][0], base.clone(), st)
-            warm[k].append(cs.kernel_ms(fn, cs.TIMED_KERNEL_RUNS,
-                                        cs.KERNEL_LAUNCHES))
-            cold[k].append(cs.flushed_ms(fn, cs.KERNEL_LAUNCHES))
-        rows[name] = {k: {"warm_ms": statistics.median(warm[k]),
-                          "l2_flushed_ms": statistics.median(cold[k]),
-                          "share_of_bound_l2_flushed":
-                              bound / statistics.median(cold[k]),
-                          "warm_ms_in_turns": warm[k],
-                          "l2_flushed_ms_in_turns": cold[k]}
-                      for k in built}
+        rows[name] = cs.in_turns(
+            {k: functools.partial(launch, lib, base.clone(), st)
+             for k, (lib, _) in built.items()}, ROUNDS, bound)
         print(f"every source bit-equal to plain on {name} (E {E} Lw {Lw} "
               f"N {N}); hits per tile of 1024 / 2048 samples: "
               f"{tile_hits(st, Lw, N, 1024)} / {tile_hits(st, Lw, N, 2048)}",

@@ -8,8 +8,9 @@ of the JAX package:
   from ``load_wav_mono`` and the resamplers;
 - ``utils.native_rt``: the port's g++ loader gives the JAX package's tape
   tables;
-- a static walk of ``audio_suite_torch/**/*.py`` and ``chip_smoke.py``
-  finds no import of ``audio_suite_tpu`` or ``jax``.
+- a static walk of ``audio_suite_torch/**/*.py``, ``chip_smoke.py`` and
+  the A/B scripts ``oa_ab.py`` and ``read_ab.py`` finds no import of
+  ``audio_suite_tpu`` or ``jax``.
 """
 import ast
 import glob
@@ -178,7 +179,8 @@ def _port_sources():
     files = sorted(glob.glob(os.path.join(REPO, "audio_suite_torch", "**",
                                           "*.py"), recursive=True))
     return files + [os.path.join(REPO, f) for f in ("chip_smoke.py",
-                                                     "oa_ab.py")]
+                                                     "oa_ab.py",
+                                                     "read_ab.py")]
 
 
 @pytest.mark.parametrize("path", _port_sources(),

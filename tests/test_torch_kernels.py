@@ -263,6 +263,51 @@ def _hr_case(seed, n, T):
     return (torch.tensor(audio), torch.tensor(whole), torch.tensor(frac))
 
 
+def _env(T, bs, seed):
+    """A block envelope with zeros, fractions and gains that clip."""
+    rng = np.random.default_rng(seed)
+    return torch.tensor(rng.choice(np.float32([0.0, 0.65, 1.0, 0.3, 1.7, 3.0]),
+                                   -(-T // bs)))
+
+
+def _on_card(x, cuda, skip):
+    """``x`` on the card, its rows starting ``skip`` elements into their
+    storage (1: off the 16-byte grid)."""
+    return torch.cat([x.new_zeros(skip), x]).to(cuda)[skip:]
+
+
+def _fused_check(cuda, audio, whole, frac, ow, of, gain, summed, env, bs,
+                 t0=0, t1=None, segs=None, skip=0):
+    """The fused kernel against its plain version on the card and on the
+    CPU, and against ``_finish(heads_read_plain(...))``, in f32 and PCM16:
+    one launch per segment (default: [t0, t1)), each writing only its
+    samples of one buffer."""
+    T = whole.shape[0]
+    segs = segs or [(t0, T if t1 is None else t1, ow, of, summed)]
+    a, e = audio.to(cuda), env.to(cuda)
+    w, f = _on_card(whole, cuda, skip), _on_card(frac, cuda, skip)
+    for dtype in (torch.float32, torch.int16):
+        got = _on_card(torch.full((T,), 7, dtype=dtype), cuda, skip)
+        plain = got.clone()
+        want = torch.full((T,), 7, dtype=dtype)
+        n0 = kernels.scrub_read.launches
+        for s0, s1, o_w, o_f, summ in segs:
+            lr.scrub_read(a, w, f, o_w, o_f, gain, summ, e, bs, got, s0, s1)
+            lr.scrub_read_plain(a, w, f, o_w, o_f, gain, summ, e, bs, plain,
+                                s0, s1)
+            lr.scrub_read(audio, whole, frac, o_w, o_f, gain, summ, env, bs,
+                          want, s0, s1)
+            buf = lr.heads_read_plain(audio, whole, frac, o_w, o_f, gain,
+                                      summ)
+            buf = torch.cat([buf, buf.new_zeros(env.shape[0] * bs - T)])
+            ref = scrub._finish(buf, env, bs, dtype == torch.int16)
+            assert torch.equal(want[s0:s1], ref[s0:s1])
+        torch.cuda.synchronize()
+        assert kernels.scrub_read.launches == n0 + len(segs)
+        assert torch.equal(got, plain)
+        assert torch.equal(got.cpu(), want)
+
+
 @pytest.mark.parametrize("summed", [True, False], ids=["A", "B"])
 @pytest.mark.parametrize("n,T,ow,of", [
     (480000, 1439744, [-2000, 0, 2000], [0, 0, 0]),   # config 2's layout
@@ -272,53 +317,117 @@ def _hr_case(seed, n, T):
     (16000, 40960, [-1501, 0, 1999], [3145728, 2097152, 1048576]),
 ])
 def test_heads_read_kernel_bit_equal_to_plain(cuda, summed, n, T, ow, of):
+    """The fused scrub read (the multi-head read, then the envelope and
+    PCM16) at config 2's layout and around it."""
     if summed and any(of):
         of = [0] * len(of)
     audio, whole, frac = _hr_case(n + T + len(ow), n, T)
     gain = float(np.float32(0.8 / len(ow)))
-    want = lr.heads_read_plain(audio, whole, frac, ow, of, gain, summed)
-    a, w, f = audio.to(cuda), whole.to(cuda), frac.to(cuda)
-    plain = lr.heads_read_plain(a, w, f, ow, of, gain, summed)
-    n0 = kernels.heads_read.launches
-    got = lr.heads_read(a, w, f, ow, of, gain, summed)
-    torch.cuda.synchronize()
-    assert kernels.heads_read.launches == n0 + 1
-    assert torch.equal(got, plain)
-    assert torch.equal(got.cpu(), want)
+    _fused_check(cuda, audio, whole, frac, ow, of, gain, summed,
+                 _env(T, 1024, T), 1024)
 
 
 def test_heads_read_kernel_on_segment_slices(cuda):
-    """The live-control render reads slices of the positions: each slice's
-    launch equals the plain read of the same slice."""
+    """The live-control render's launches: one per segment, each into its
+    own samples of one buffer, in both forms."""
     audio, whole, frac = _hr_case(5, 16000, 40960)
-    a, w, f = audio.to(cuda), whole.to(cuda), frac.to(cuda)
-    for t0, t1, ow, of, summed in [(0, 2048, [-700, 650], [2097152, 0], False),
-                                   (2048, 7168, [-2000, 2000], [0, 0], True),
-                                   (7168, 12288, [0], [0], True),
-                                   (12288, 40960, [-2200, 0, 2200], [0] * 3,
-                                    True)]:
-        got = lr.heads_read(a, w[t0:t1], f[t0:t1], ow, of, 0.4, summed)
-        want = lr.heads_read_plain(audio, whole[t0:t1], frac[t0:t1], ow, of,
-                                   0.4, summed)
-        torch.cuda.synchronize()
-        assert torch.equal(got.cpu(), want)
+    _fused_check(cuda, audio, whole, frac, None, None, 0.4, None,
+                 _env(40960, 1024, 5), 1024, segs=[
+                     (0, 2048, [-700, 650], [2097152, 0], False),
+                     (2048, 7168, [-2000, 2000], [0, 0], True),
+                     (7168, 12288, [0], [0], True),
+                     (12288, 40960, [-2200, 0, 2200], [0] * 3, True)])
+
+
+@pytest.mark.parametrize("summed", [True, False], ids=["A", "B"])
+@pytest.mark.parametrize("T,t0,t1,bs", [
+    (1, 0, 1, 1024), (7, 0, 7, 1024), (100, 3, 97, 1024),
+    (2047, 0, 2047, 1024), (2049, 0, 2049, 1000), (6000, 13, 5990, 64),
+    (70001, 2051, 70001, 1000),
+])
+def test_scrub_read_kernel_ragged_tails(cuda, summed, T, t0, t1, bs):
+    """Launches that cover less than one tile, or end in a ragged tile and
+    start off the 8-sample grid, with small and odd envelope blocks."""
+    audio, whole, frac = _hr_case(T, 5000, T)
+    of = [0, 0] if summed else [1048576, 3145728]
+    _fused_check(cuda, audio, whole, frac, [-1200, 1300], of, 0.4, summed,
+                 _env(T, bs, T + 1), bs, t0, t1)
+
+
+def _tile_case(kind, n=30000, T=8192):
+    """Positions that advance ~0.8 a sample, with, inside the block of
+    samples 1024 .. 2048: a jump ("jump") or the wrap at n ("wrap"); or
+    random positions in [-n, 3n) ("random": outside [0, 2n), the 32-bit
+    mod), or a speed of 3 samples a sample ("fast")."""
+    rng = np.random.default_rng(len(kind))
+    step = {"fast": 3 << 22}.get(kind, 3355443)        # ~0.8 sample
+    pos = np.arange(T, dtype=np.int64) * step + 1000 * (1 << 22)
+    if kind == "jump":
+        pos[1500:] += 11000 * (1 << 22)
+    if kind == "wrap":
+        pos += (n - 500 - int(pos[1000] >> 22)) * (1 << 22)
+    if kind == "random":
+        pos = rng.integers(-n << 22, 3 * n << 22, T)
+    whole = (pos >> 22).astype(np.int32)
+    frac = (pos & ((1 << 22) - 1)).astype(np.int32)
+    audio = rng.uniform(-1, 1, n).astype(np.float32)
+    return torch.tensor(audio), torch.tensor(whole), torch.tensor(frac)
+
+
+@pytest.mark.parametrize("summed", [True, False], ids=["A", "B"])
+@pytest.mark.parametrize("kind", ["jump", "wrap", "random", "fast"])
+def test_scrub_read_kernel_position_layouts(cuda, kind, summed):
+    """A jump or the wrap at n inside one block of samples, positions
+    spread below 0 and past 2n (the kernel's 32-bit mod), a fast speed:
+    the same samples as the plain version."""
+    audio, whole, frac = _tile_case(kind)
+    of = [0, 0, 0] if summed else [2097152, 0, 4194303]
+    _fused_check(cuda, audio, whole, frac, [-2000, 0, 2000], of, 0.3,
+                 summed, _env(whole.shape[0], 1024, 3), 1024)
+
+
+def test_scrub_read_kernel_carries_and_misaligned_rows(cuda):
+    """Form B with fractions outside [0, 2**22) (carries other than 0 or
+    1: the 64-bit fallback) and rows that start off a 16-byte boundary."""
+    audio, whole, frac = _hr_case(9, 3000, 9000)
+    rng = np.random.default_rng(9)
+    frac = torch.tensor(rng.integers(-(1 << 28), 1 << 28, 9000)
+                        .astype(np.int32))
+    _fused_check(cuda, audio, whole, frac, [-2000, 7, 1999],
+                 [4194303, 1 << 21, 0], 0.3, False, _env(9000, 512, 9), 512)
+    _fused_check(cuda, audio, whole, frac, [-2000, 7], [0, 0], 0.3, True,
+                 _env(9000, 512, 10), 512, 5, 8990, skip=1)
 
 
 def test_heads_read_kernel_rejects_what_it_does_not_take(cuda):
     audio, whole, frac = _hr_case(0, 100, 64)
     a, w, f = audio.to(cuda), whole.to(cuda), frac.to(cuda)
-    n0 = kernels.heads_read.launches
+    env = torch.ones(1, device=cuda)
+    out = torch.empty(64, device=cuda)
+    n0 = kernels.scrub_read.launches
+
+    def read(a=a, w=w, f=f, ow=(0,), of=(0,), summed=True, env=env,
+             out=out, t0=0, t1=64):
+        kernels.scrub_read(a, w, f, list(ow), list(of), 1.0, summed, env, 64,
+                           out, t0, t1)
+
     with pytest.raises(TypeError):
-        kernels.heads_read(a, w.long(), f, [0], [0], 1.0, True)
+        read(w=w.long())
     with pytest.raises(ValueError):
-        kernels.heads_read(a, w[::2], f[::2], [0], [0], 1.0, True)
+        read(w=w[::2], f=f[::2], out=out[::2])
     with pytest.raises(ValueError):
-        kernels.heads_read(a, w, f, [0, 1, 2, 3], [0] * 4, 1.0, False)
+        read(ow=(0, 1, 2, 3), of=(0,) * 4, summed=False)
     with pytest.raises(ValueError):
-        kernels.heads_read(a, w, f, [0], [7], 1.0, True)
+        read(of=(7,))
     with pytest.raises(ValueError):
-        kernels.heads_read(audio, w, f, [0], [0], 1.0, True)
-    assert kernels.heads_read.launches == n0
+        read(a=audio)
+    with pytest.raises(TypeError):
+        read(out=out.double())
+    with pytest.raises(ValueError):
+        read(t1=65)
+    with pytest.raises(ValueError):
+        read(env=env[:0])
+    assert kernels.scrub_read.launches == n0
 
 
 def _smoke_scrub():
@@ -343,11 +452,45 @@ def _smoke_scrub():
 def test_scrub_smoke_render_on_cuda_matches_cpu(cuda):
     audio, cfg, trace = _smoke_scrub()
     want = scrub.render_scrub(audio, cfg, trace, device="cpu")
-    n0 = kernels.heads_read.launches
+    n0 = kernels.scrub_read.launches
     got = scrub.render_scrub(audio, cfg, trace, device=cuda)
-    assert kernels.heads_read.launches == n0 + 1
+    assert kernels.scrub_read.launches == n0 + 1
     dev = np.abs(got.astype(np.float64) - want).max()
     assert 20 * np.log10(max(dev, 1e-300)) <= -120.0
+    want16 = scrub.render_scrub(audio, cfg, trace, pcm16=True, device="cpu")
+    got16 = scrub.render_scrub(audio, cfg, trace, pcm16=True, device=cuda)
+    assert np.abs(got16.astype(np.int32) - want16).max() <= 1
+
+
+def test_scrub_live_control_render_launches_once_per_segment(cuda):
+    """The ``scrub_keys`` golden (key events: 6 head layouts) on the card:
+    one fused launch per control segment, within -120 dBFS of the CPU
+    render, PCM16 within 1 LSB."""
+    sr = 8000
+    t = np.arange(sr * 2) / sr
+    audio = (0.5 * np.sin(2 * np.pi * 220 * t)
+             + 0.25 * np.sin(2 * np.pi * 933 * t)).astype(np.float32)
+    cfg = scrub.ScrubConfig(sample_rate=sr, seed=5, head_count=3)
+    trace = scrub.scripted_gesture_trace(
+        40, sr, drag_events=[(0.3, 4.0, 0.4)], base_speed=0.5,
+        jumps=[(0.9, 3000.0)],
+        key_events=[(0.2, "2"), (0.4, "Z"), (0.6, "1"), (0.8, "V"),
+                    (1.0, "3"), (1.2, "Down")])
+    segs = len(scrub.build_scrub_program(audio, cfg, trace, 2000.0)
+               ["head_segments"])
+    assert segs == 6
+    for pcm16 in (False, True):
+        want = scrub.render_scrub(audio, cfg, trace, 2000.0, pcm16=pcm16,
+                                  device="cpu")
+        n0 = kernels.scrub_read.launches
+        got = scrub.render_scrub(audio, cfg, trace, 2000.0, pcm16=pcm16,
+                                 device=cuda)
+        assert kernels.scrub_read.launches == n0 + segs
+        dev = np.abs(got.astype(np.float64) - want).max()
+        if pcm16:
+            assert dev <= 1
+        else:
+            assert 20 * np.log10(max(dev, 1e-300)) <= -120.0
 
 
 def test_patternlab_smoke_render_on_cuda_matches_cpu(cuda):

@@ -14,7 +14,11 @@ side jitted, as Tier-1 runs it):
   fused multiply-add); ``heads_read_plain`` in form A (heads summed, one
   lerp) and form B (one lerp per head) bit-equal to NumPy's float32
   evaluation and within one rounding step of ``_read_blockwise_heads`` and
-  of the per-head ``gather_linear_wrap``; the sinc twins within 1e-5;
+  of the per-head ``gather_linear_wrap``; the fused ``scrub_read_plain``
+  (read, envelope, PCM16 from a sample ``t0`` on) bit-equal to
+  ``_finish(heads_read_plain(...))`` in both forms and outputs, across the
+  wrap at n, envelope zeros, clipping and half-LSB ties; the sinc twins
+  within 1e-5;
 - the renders: bench config 2 at its smoke size and a variant with its
   drags and jump scaled into the smoke's 2 s, within -120 dBFS of JAX with
   PCM16 within 1 LSB; every other ``render_scrub`` path (form B by
@@ -464,26 +468,156 @@ def test_heads_read_per_head_matches_gather_linear_wrap(offs):
     ref = _jax_per_head(audio, whole, frac, ow, of) * np.float32(gain)
     dev = np.abs(ref.astype(np.float64) - got)
     assert (dev <= tol * gain + np.spacing(np.abs(got))).all()
-    # the dispatcher takes the plain version for CPU tensors
-    again = tlr.heads_read(torch.from_numpy(audio), torch.from_numpy(whole),
-                           torch.from_numpy(frac), ow, of, gain,
-                           False).numpy()
+    # the fused read's dispatcher takes the plain version for CPU tensors;
+    # under a unit envelope its f32 output is this read
+    out = torch.empty(len(whole), dtype=torch.float32)
+    again = tlr.scrub_read(torch.from_numpy(audio), torch.from_numpy(whole),
+                           torch.from_numpy(frac), ow, of, gain, False,
+                           torch.ones(len(whole)), 1, out).numpy()
     assert np.array_equal(_bits(again), _bits(got))
 
 
 def test_heads_read_rejects_what_it_does_not_take():
     a = torch.zeros(8)
     w = torch.zeros(4, dtype=torch.int32)
+    env, out = torch.ones(2), torch.zeros(4)
+
+    def read(a=a, w=w, f=w, ow=(0,), of=(0,), summed=True, env=env, bs=2,
+             out=out, t0=0, t1=None):
+        return tlr.scrub_read(a, w, f, list(ow), list(of), 1.0, summed, env,
+                              bs, out, t0, t1)
+
     with pytest.raises(TypeError):
-        tlr.heads_read(a, w.long(), w, [0], [0], 1.0, True)
+        read(w=w.long(), f=w.long())
     with pytest.raises(ValueError):
-        tlr.heads_read(a, w, w[:3], [0], [0], 1.0, True)
+        read(f=w[:3])
     with pytest.raises(ValueError):
-        tlr.heads_read(a, w, w, [0, 1], [0], 1.0, False)
+        read(ow=(0, 1), summed=False)
     with pytest.raises(ValueError):
-        tlr.heads_read(a, w, w, [0], [5], 1.0, True)     # fractional, A
+        read(of=(5,))                                   # fractional, A
     with pytest.raises(ValueError):
-        tlr.heads_read(a[:0], w, w, [0], [0], 1.0, True)
+        read(a=a[:0])
+    with pytest.raises(TypeError):
+        read(out=out.double())
+    with pytest.raises(ValueError):
+        read(out=out[:3])
+    with pytest.raises(ValueError):
+        read(env=env[:1])                   # 2 samples a block, 4 samples
+    with pytest.raises(ValueError):
+        read(t0=3, t1=2)
+    assert torch.equal(read(t0=1, t1=1), torch.zeros(4))   # nothing read
+
+
+FUSED_HEADS = [(True, (-2000,), (0,)), (True, (-2000, 2000), (0, 0)),
+               (True, (-2000, 0, 2000), (0, 0, 0)),
+               (True, (-16001, 3, 31999), (0, 0, 0)),
+               (False, (-1501,), (3145728,)),
+               (False, (-700, 650), (2097152, 0)),
+               (False, (-1501, 0, 1999), (3145728, 2097152, 1048576))]
+
+
+def _fused_env(T, bs, seed):
+    """A dropout-style envelope with zeros, fractions and gains above 1
+    (so that the read clips at +-1)."""
+    rng = np.random.default_rng(seed)
+    return rng.choice(np.float32([0.0, 0.65, 1.0, 0.3, 1.7, 2.5]),
+                      -(-T // bs)).astype(np.float32)
+
+
+def _fused_pair(audio, whole, frac, ow, of, gain, summed, env, bs, dtype,
+                t0, t1):
+    """(want, got): ``_finish(heads_read_plain(...))`` over the whole
+    positions, cut to [t0, t1), and ``scrub_read_plain`` into a buffer
+    holding a sentinel outside [t0, t1)."""
+    a, w, f = (torch.from_numpy(x) for x in (audio, whole, frac))
+    env_t = torch.from_numpy(env)
+    want = ts._finish(tlr.heads_read_plain(a, w, f, list(ow), list(of), gain,
+                                           summed),
+                      env_t, bs, dtype == torch.int16)
+    out = torch.full((len(whole),), 7, dtype=dtype)
+    got = tlr.scrub_read_plain(a, w, f, list(ow), list(of), gain, summed,
+                               env_t, bs, out, t0, t1)
+    assert got is out and got.dtype == dtype
+    assert (got[:t0] == 7).all() and (got[t1:] == 7).all()
+    return want[t0:t1], got[t0:t1]
+
+
+@pytest.mark.parametrize("t0,t1,bs", [(0, 1 << 16, 1024),
+                                      (5120, 60001, 1000)],
+                         ids=["whole", "segment"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16],
+                         ids=["f32", "pcm16"])
+@pytest.mark.parametrize("summed,ow,of", FUSED_HEADS, ids=str)
+def test_scrub_read_plain_bit_equal_to_finish_of_heads_read(summed, ow, of,
+                                                           dtype, t0, t1,
+                                                           bs):
+    """The fused plain read, envelope and PCM16 from a sample t0 on are
+    ``_finish`` of the plain read: forms A and B with one to three heads,
+    negative offsets and offsets past n, positions across the wrap at n
+    (``_read_case``), an envelope with zeros and fractions, clipping."""
+    audio, whole, frac = _read_case(6)
+    T = len(whole) // bs * bs                  # a render's whole blocks
+    whole, frac = whole[:T], frac[:T]
+    gain = float(np.float32(1.25))            # with the envelope's 2.5: clips
+    env = _fused_env(len(whole), bs, len(ow) + bs)
+    want, got = _fused_pair(audio, whole, frac, ow, of, gain, summed, env,
+                            bs, dtype, t0, t1)
+    assert torch.equal(got, want)
+    if dtype == torch.int16:                 # some samples clip, some are 0
+        assert int((got == 32767).sum() + (got == -32768).sum()) > 0
+        assert int((got == 0).sum()) > 0
+
+
+@pytest.mark.parametrize("summed", [True, False], ids=["A", "B"])
+def test_scrub_read_plain_pcm16_rounds_half_lsb_ties_to_even(summed):
+    """Samples that land exactly on half an LSB (y * 32768 = k + 1/2) round
+    to the even k, as ``torch.round`` and the JAX package's ``jnp.round``
+    do, in the fused read as in ``_finish``."""
+    k = np.arange(-40, 40)
+    n = len(k) + 2
+    audio = np.zeros(n, np.float32)
+    audio[1:-1] = (k + 0.5) / 32768.0              # exact in f32
+    whole = np.arange(1, n - 1, dtype=np.int32)
+    frac = np.zeros(len(whole), np.int32)
+    env = np.ones(1, np.float32)
+    want, got = _fused_pair(audio, whole, frac, (0,), (0,), 1.0, summed, env,
+                            len(whole), torch.int16, 0, len(whole))
+    assert torch.equal(got, want)
+    assert np.array_equal(got.numpy(), np.rint(k + 0.5).astype(np.int16))
+    assert not np.array_equal(got.numpy(), np.floor(k + 1.0))
+
+
+def test_scrub_read_plain_matches_jax_tail():
+    """The fused plain read of config 2's smoke positions against the JAX
+    package's render tail (``buf * head_gain``, ``* repeat(env_blocks)``,
+    ``clip(round(y * 32768))``) on the same positions, with JAX's blockwise
+    read as ``buf``: float within a rounding step of the read, PCM16
+    within 1 LSB."""
+    audio, pj, pt = _programs("config2_smoke")
+    w, f = _port_positions(pt)
+    seg = pt["head_segments"][0]
+    ow, gain = [int(v) for v in seg["off_whole"]], float(seg["gain"])
+    T, bs = len(w), int(pt["block_size"])
+    assert ts.reads_summed(T, len(audio), ts.program_span(pt),
+                           seg["off_frac"])
+    buf = jax.jit(js._read_blockwise_heads, static_argnums=(3, 4))(
+        audio, w.numpy(), f.numpy(), tuple(ow), 1)
+    y = buf * jnp.float32(gain) * jnp.repeat(jnp.asarray(pj["env_blocks"]),
+                                             bs)
+    want16 = np.asarray(jnp.clip(jnp.round(y * 32768.0), -32768.0, 32767.0)
+                        .astype(jnp.int16))
+    env = torch.from_numpy(pt["env_blocks"])
+    got = tlr.scrub_read_plain(torch.from_numpy(audio), w, f, ow, [0] * 3,
+                               gain, True, env, bs,
+                               torch.empty(T, dtype=torch.float32))
+    got16 = tlr.scrub_read_plain(torch.from_numpy(audio), w, f, ow, [0] * 3,
+                                 gain, True, env, bs,
+                                 torch.empty(T, dtype=torch.int16))
+    dev = _dbfs(np.asarray(y), got.numpy())
+    print(f"fused plain read vs JAX's tail: {dev:.2f} dBFS")
+    assert dev <= TOL_DBFS
+    assert np.abs(got16.numpy().astype(np.int32)
+                  - want16.astype(np.int32)).max() <= 1
 
 
 def test_sinc_wrap_twins():
@@ -586,10 +720,10 @@ def test_read_form_follows_the_jax_branch(name, forms):
     seen = []
 
     def spy(*args):
-        seen.append("A" if args[-1] else "B")
-        return tlr.heads_read(*args)
+        seen.append("A" if args[6] else "B")
+        return tlr.scrub_read(*args)
 
-    with mock.patch.object(ts, "heads_read", spy):
+    with mock.patch.object(ts, "scrub_read", spy):
         ts.render_scrub(audio, cfg, trace, device="cpu", **kw)
     assert seen == forms
 
