@@ -25,7 +25,13 @@ Ported so far:
 - the Pattern Lab render (the bench's four-generator configuration):
   host pattern generators -> note batch -> length buckets -> FM and PSG
   voice bank, a batch of notes per bucket -> ordered overlap-add ->
-  tanh master bus -> PCM16.
+  tanh master bus -> PCM16;
+- the Grid Audio mixdown (the grid half of the bench's config 5): host
+  project model, user cells through ``plugins/host.py``, restart events
+  and patterns -> per track, the mod-speed chain of ``ops/envdet.py``,
+  segmented fixed-point positions and a gather from the gain-premultiplied
+  pattern bank -> mix, clip, PCM16; and the host engine over the shared
+  C++ phase accumulator.
 
 Paths outside those slices raise ``NotImplementedError``.
 
@@ -45,7 +51,7 @@ Conventions:
   its own copies of the host modules it needs, each where the JAX package
   has the original (``events/schedulers.py``, ``events/notes.py``,
   ``utils/breakpoints.py``, ``utils/music.py``, ``utils/io.py`` with
-  ``utils/wavcodec.py``), and its own loader of the
+  ``utils/wavcodec.py``, ``plugins/host.py``), and its own loader of the
   C++ host runtime ``native/ast_runtime.cpp`` (``utils/native_rt.py``),
   the one source it shares.
 """

@@ -1,6 +1,6 @@
 """Exact fixed-point tape-position arithmetic, the 12-bit significand
 splits and the fractional reads — port of audio_suite_tpu/ops/fixq.py
-(the parts the tape, scrub and Pattern Lab renders use).
+(the parts the tape, scrub, Pattern Lab and grid renders use).
 
 A position is ``whole + frac * 2**-POS_FRAC_BITS`` with int32 ``whole`` and
 ``frac`` in ``[0, POS_ONE)``; increments are quantized through single-
@@ -177,12 +177,28 @@ def gather_sinc_wrap_np(audio, whole, frac, taps: int = 16):
     return acc / wsum
 
 
+def pos_add(whole, frac, inc, frac_bits: int = POS_FRAC_BITS):
+    """(whole, frac) += inc with carry normalization; inc may be negative
+    (the arithmetic right shift floors, as in the JAX package)."""
+    f = frac + inc
+    carry = f >> frac_bits
+    return whole + carry, f - (carry << frac_bits)
+
+
+def pos_add_np(whole, frac, inc, frac_bits: int = POS_FRAC_BITS):
+    f = frac + inc
+    carry = f >> frac_bits
+    return whole + carry, f - (carry << frac_bits)
+
+
 def segmented_pos_cumsum(inc: torch.Tensor, reset: torch.Tensor,
-                         init_whole: int = 0, init_frac: int = 0):
+                         init_whole=0, init_frac=0):
     """Inclusive segmented prefix sum of fixed-point increments:
     ``pos[i] = init + sum(inc[j] for j in (last reset <= i) .. i)``, where
     ``reset[i]`` restarts the sum at element i and the init applies only
-    before the first reset.  Returns (whole int32, frac int32).
+    before the first reset.  Returns (whole int32, frac int32).  The init
+    is a pair of Python ints or of integer scalar tensors on ``inc``'s
+    device (a seed computed on the device needs no host sync).
 
     The JAX package runs this as a blocked Hillis-Steele scan to keep XLA's
     compile times down; here it is one int64 ``cumsum`` that restarts at
@@ -201,7 +217,15 @@ def segmented_pos_cumsum(inc: torch.Tensor, reset: torch.Tensor,
     # which then takes the initial position
     base.scatter_(0, torch.where(reset, seg, 0),
                   torch.where(reset, incl - inc, 0))
-    base[0] = -(int(init_whole) * POS_ONE + int(init_frac))
+    w, f = (v.to(torch.int64) if isinstance(v, torch.Tensor) else int(v)
+            for v in (init_whole, init_frac))
+    init = -(w * POS_ONE + f)
+    # fill_ and copy_ stay on the device; `base[0] = number` would copy a
+    # host scalar in, and that copy synchronizes the host with the card
+    if isinstance(init, torch.Tensor):
+        base[0].copy_(init)
+    else:
+        base[0].fill_(init)
     val = incl - base[seg]
     return ((val >> POS_FRAC_BITS).to(torch.int32),
             (val & POS_MASK).to(torch.int32))

@@ -1,10 +1,11 @@
-"""WAV / audio I/O helpers — the port's copy of the parts of
-audio_suite_tpu/utils/io.py that the tape's ``render_to_wav`` uses.
+"""WAV / audio I/O helpers — the port's copy of audio_suite_tpu/utils/io.py.
 
 Mirrors the reference's soundfile-based loaders semantically:
 - mono fold by channel mean          (grid_audio_app_0.2/grid_audio_app.py:26-29)
 - endpoint=False linear resampling   (grid_audio_app.py:31-40; tape-tuc-main/
   Tape_TUC_23-11-25_auto-slice_n_record.py:238-249)
+- peak normalization                 (grid_audio_app.py:55-62,
+  microsound_0.2.1/main_v2.py:26-29)
 
 These run on host (NumPy): file I/O is not device work. Arrays are handed to
 engines as float32.
@@ -54,6 +55,41 @@ def resample_to_rate(audio: np.ndarray, in_sr: int, out_sr: int) -> np.ndarray:
     old_x = np.linspace(0.0, 1.0, num=len(audio), endpoint=False, dtype=np.float64)
     new_x = np.linspace(0.0, 1.0, num=new_len, endpoint=False, dtype=np.float64)
     return np.interp(new_x, old_x, audio.astype(np.float64)).astype(np.float32)
+
+
+def fit_to_duration(x: np.ndarray, sr: int, duration: float) -> np.ndarray:
+    """Truncate or zero-pad to an exact duration (grid_audio_app.py:42-53)."""
+    n = max(0, int(round(duration * sr)))
+    if n == 0:
+        return np.zeros((0,), dtype=np.float32)
+    x = np.asarray(x, np.float32)
+    if len(x) == n:
+        return x
+    if len(x) < n:
+        out = np.zeros((n,), dtype=np.float32)
+        out[: len(x)] = x
+        return out
+    return x[:n]
+
+
+def normalize_peak(x: np.ndarray, peak: float = 0.98) -> np.ndarray:
+    """Grid Audio flavor: only attenuates (grid_audio_app.py:55-62)."""
+    if len(x) == 0:
+        return np.asarray(x, np.float32)
+    m = float(np.max(np.abs(x)))
+    if m <= 1e-12:
+        return np.asarray(x, np.float32)
+    g = min(1.0, peak / m)
+    return (np.asarray(x, np.float32) * g).astype(np.float32)
+
+
+def normalize_full(x: np.ndarray, peak: float = 0.98) -> np.ndarray:
+    """Microsound flavor: scales up or down (main_v2.py:26-29)."""
+    x = np.asarray(x)
+    m = float(np.max(np.abs(x))) if x.size else 0.0
+    if m <= 0:
+        return x
+    return x * (peak / m)
 
 
 def read_wav(path: str, always_2d: bool = False):

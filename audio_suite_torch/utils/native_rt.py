@@ -1,5 +1,6 @@
-"""The tape's host control tables from the C++ host runtime — port of
-audio_suite_tpu/utils/native_rt.py:tape_tables, with its own loader.
+"""The C++ host runtime — port of audio_suite_tpu/utils/native_rt.py's
+``tape_tables`` (the tape's control tables) and ``grid_placement`` (the
+grid's phase accumulator), with its own loader.
 
 ``native/ast_runtime.cpp`` is host code shared with the JAX package (read
 and compiled, never edited).  ``get_lib`` compiles it with g++ on first use
@@ -59,8 +60,9 @@ def _build() -> str:
 
 
 def get_lib() -> ctypes.CDLL:
-    """The loaded runtime with ``ast_tape_tables`` bound; built on first
-    use.  Raises if it cannot be built or loaded."""
+    """The loaded runtime with ``ast_tape_tables`` and
+    ``ast_grid_placement`` bound; built on first use.  Raises if it cannot
+    be built or loaded."""
     global _lib
     with _lock:
         if _lib is None:
@@ -85,8 +87,42 @@ def get_lib() -> ctypes.CDLL:
                 p_i64, p_i64, p_i64,
                 p_i64, p_i64, p_i64]
             lib.ast_tape_tables.restype = i32
+            # native_rt.py:88-93 of the JAX package: speed and resets are
+            # nullable pointers with their lengths
+            lib.ast_grid_placement.argtypes = [
+                i64, i64, i64, i32,
+                ctypes.c_void_p, i64,
+                ctypes.c_void_p, i64,
+                ctypes.c_double, p_i64, arr(np.uint8)]
+            lib.ast_grid_placement.restype = None
             _lib = lib
         return _lib
+
+
+def grid_placement(n_total: int, pat_n: int, start_idx: int, loop: bool,
+                   speed, resets, pre_phase: float):
+    """The reference's per-sample phase-accumulator loop in C: (idx
+    i64[n_total], valid bool[n_total]) of a pattern of ``pat_n`` samples
+    placed from master sample ``start_idx`` at per-sample ``speed`` (f32,
+    or None for 1), restarting at the ``resets`` sample indices, with
+    ``pre_phase`` the phase reached by sample 0 when ``start_idx < 0``."""
+    if pat_n < 1:
+        raise ValueError(f"grid_placement needs a pattern, got pat_n {pat_n}")
+    lib = get_lib()
+    idx = np.zeros(n_total, np.int64)
+    valid = np.zeros(n_total, np.uint8)
+    sp = None
+    if speed is not None:
+        sp = np.ascontiguousarray(speed, np.float32)
+    rs = np.ascontiguousarray(sorted(resets), np.int64) if resets else None
+    lib.ast_grid_placement(
+        int(n_total), int(pat_n), int(start_idx), 1 if loop else 0,
+        sp.ctypes.data if sp is not None else None,
+        0 if sp is None else len(sp),
+        rs.ctypes.data if rs is not None else None,
+        0 if rs is None else len(rs),
+        float(pre_phase), idx, valid)
+    return idx, valid.astype(bool)
 
 
 def tape_tables(T: int, n: int, mod_consts, starts, ends, speeds_q, reverse,

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives audio_suite_torch's four ported paths at full size on the card,
+Drives audio_suite_torch's five ported paths at full size on the card,
 in phases; any failure raises and the exit code is non-zero.  The paths:
 
 - Microsound: the bench's high-rate transient-field configuration
@@ -17,7 +17,13 @@ in phases; any failure raises and the exit code is non-zero.  The paths:
   buckets), rendered through ``models.patternlab.render``;
 - scrub: bench config 2 (bench.py:268-292: a 10 s 48 kHz tape scrubbed
   for 30 s by three heads, three drags, a jump; 1 439 744 frames),
-  rendered through ``models.scrub.render_scrub``.
+  rendered through ``models.scrub.render_scrub``;
+- grid: the grid half of bench config 5 (bench.py:502-525: 48 kHz, 16 s,
+  four looped tracks of eight py cells from ``examples/cells/``, a
+  three-deep mod chain, sync points; 768 000 samples) and
+  ``examples/grid_showcase.json`` (44.1 kHz, 12 s, restart cells, a
+  non-loop track, normalize), rendered through
+  ``models.grid.render_mixdown``.
 
 Phases:
 
@@ -65,7 +71,18 @@ Phases:
    scaled into it) and the ``scrub_keys`` golden within -120 dBFS of the
    CPU render, the ``scrub_sinc`` golden within -100 dBFS; timing of the
    bench's ``run()`` (cached program, PCM16 render, pull, host stereo),
-   the render's device time, a fresh program, and one profiler window.
+   the render's device time, a fresh program, and one profiler window;
+7. grid: config 5's grid half and the showcase rendered on the card in
+   f32 and PCM16 with every hand-kernel launch counted (the path reaches
+   none: the grid's gather is a plain one, as ``ROADMAP.md`` says of the
+   JAX package's one-hot read), each render bit-equal to the port's CPU
+   render and to its host engine; n_total, peaks, restart events and
+   resets; timing of the bench ``run()``'s grid half
+   (``render_mixdown(project, pcm16=True)`` on a memo hit, pull
+   included), the render's device time, a fresh program and prepare, and
+   one profiler window, with run()'s memo-hit key and pull timed apart
+   and one render run under ``torch.cuda.set_sync_debug_mode("error")``
+   (no host sync inside a render).
 
 Every kernel's launch count is set to 0 just before a path is driven and
 read just after it.  A kernel is timed twice.  Warm (its ``ms``, the
@@ -119,6 +136,8 @@ PL_SECONDS = 8.0       # bench config 4's render length
 PROFILED_RENDERS = 3   # renders in a profiler window
 SCRUB_SECONDS, SCRUB_TAPE = 30.0, 10.0   # bench config 2's render and tape
 SCRUB_FRAMES = 1439744  # its output frames: 1 406 blocks of 1 024
+GRID_SECONDS = 16.0    # bench config 5's master length
+GRID_FRAMES = 768000   # its samples at 48 kHz
 
 
 def config3(full: bool):
@@ -210,6 +229,34 @@ def config2(seconds: float, audio_seconds: float, scale: float = 1.0):
                      ((2.0, 8.0, 3.0), (10.0, -14.0, 4.0), (20.0, 4.0, 5.0))],
         base_speed=0.5, jumps=[(15.0 * scale, 1000.0)])
     return bench_audio(sr, audio_seconds), cfg, trace
+
+
+def config5(seconds: float):
+    """bench.py:502-525 (``seconds`` 16: _SMOKE off; 4: its smoke size):
+    the grid half of bench config 5, a 48 kHz project of four looped
+    tracks of eight py cells each from ``examples/cells/``, gain -3 dB per
+    track index, tracks 1-3 with sync points at 4.0 and 9.5 s and
+    modulated by the track before at amount 0.6."""
+    from audio_suite_torch.models import grid
+    cells = os.path.join(REPO, "examples", "cells")
+    files = ["slow_pulse_pad.py", "euclid_clicks.py", "shard_scatter.py",
+             "poly_impulses.py"]
+    tracks = []
+    for ti in range(4):
+        t = grid.Track(name=f"t{ti}", mode="duration",
+                       duration_seconds=2.0 + ti, uniform_n=8,
+                       loop_to_master=True, gain_db=-3.0 * ti,
+                       sync_points_text="4.0, 9.5" if ti else "")
+        if ti >= 1:
+            t.mod_source_index = ti - 1
+            t.mod_amount = 0.6
+        t.cells = [grid.CellSource(kind="py",
+                                   path=os.path.join(cells, files[ti]))
+                   for _ in range(t.uniform_n)]
+        tracks.append(t)
+    return grid.GridProject(tracks=tracks,
+                            master=grid.MasterClock("fixed_seconds", seconds),
+                            sample_rate=48000)
 
 
 def config2_positions(dev):
@@ -1097,6 +1144,155 @@ def scrub_path(dev, card: str) -> dict:
             "busy_ms_per_render": prof.get("busy_ms_per_render")}
 
 
+def grid_check(label: str, project, dev) -> dict:
+    """One grid project on the card in f32 and PCM16, each bit-equal to the
+    port's CPU render and to its host engine; returns its figures."""
+    from audio_suite_torch.models import grid
+    entry = grid.build_mix_program_cached(project)
+    n_total, rows = entry["n_total"], entry["rows"]
+    y16 = grid.render_mixdown(project, pcm16=True, device=dev)
+    y = grid.render_mixdown(project, device=dev)
+    pcm16 = not project.normalize          # normalize renders float only
+    if y.shape != (n_total,) or y.dtype != np.float32:
+        raise AssertionError(f"{label}: render gave {y.shape} {y.dtype}")
+    if y16.shape != (n_total,) or y16.dtype != (np.int16 if pcm16
+                                                 else np.float32):
+        raise AssertionError(f"{label}: PCM16 render gave {y16.shape} "
+                             f"{y16.dtype}")
+    if not np.isfinite(y).all() or np.abs(y).max() > 1.0:
+        raise AssertionError(f"{label}: non-finite or unclipped samples")
+    cpu = grid.render_mixdown(project, device="cpu")
+    cpu16 = grid.render_mixdown(project, pcm16=True, device="cpu")
+    host = grid.render_mixdown(project, engine="host")
+    for name, a, b in (("f32 vs the CPU render", y, cpu),
+                       ("PCM16 vs the CPU render", y16, cpu16),
+                       ("f32 vs the host engine", y, host)):
+        if not np.array_equal(a, b):
+            raise AssertionError(
+                f"{label}: card {name}: {int(np.sum(a != b))} samples differ")
+    if pcm16 and not np.array_equal(
+            y16, np.clip(np.round(y * 32768.0), -32768, 32767)):
+        raise AssertionError(f"{label}: PCM16 is not the rounded f32 render")
+    peak16 = int(np.abs(y16.astype(np.int32)).max()) if pcm16 else None
+    if float(np.abs(y).max()) < 0.05:
+        raise AssertionError(f"{label}: render is near silent")
+    restarts = grid.collect_restart_events(project,
+                                           project.master.duration(
+                                               project.tracks))
+    return {"n_total": n_total, "peak": float(np.abs(y).max()),
+            "peak16": peak16, "restarts": sum(len(r) for r in restarts),
+            "resets": [len(r["resets"]) for r in rows],
+            "modulated": [r["mod_src"] for r in rows]}
+
+
+def grid_path(dev, card: str) -> dict:
+    """Phase 7: the grid half of bench config 5 and the showcase project;
+    returns the grid's figures (it reaches no hand kernel)."""
+    from audio_suite_torch.models import grid
+
+    project = config5(GRID_SECONDS)
+    t0 = time.perf_counter()
+    entry = grid.build_mix_program_cached(project)
+    first_s = time.perf_counter() - t0
+    if entry["n_total"] != GRID_FRAMES:
+        raise AssertionError(f"config 5 renders {entry['n_total']} samples")
+    showcase = grid.load_project(os.path.join(REPO, "examples",
+                                              "grid_showcase.json"))
+
+    # the main path, every launch counted: the bench's PCM16 render and
+    # the float render, then the showcase; no hand kernel is on it
+    reset_counts()
+    figs = {"config 5": grid_check("config 5", project, dev),
+            "showcase": grid_check("showcase", showcase, dev)}
+    launches = read_counts()
+    for label, f in figs.items():
+        forms = ("f32 and PCM16" if f["peak16"] is not None
+                 else "f32 (normalized: no PCM16)")
+        print(f"grid {label}: n_total {f['n_total']}, peak {f['peak']:.4f}"
+              f", PCM16 peak {f['peak16']}, {f['restarts']} restart events"
+              f", resets per track {f['resets']}, mod sources "
+              f"{f['modulated']}; {forms} bit-equal to the CPU render and "
+              f"the host engine", flush=True)
+    print(f"grid: hand-kernel launches {launches} (none on this path); "
+          f"first program build {first_s * 1e3:.1f} ms (user cells, host)",
+          flush=True)
+
+    # timing: the bench's run() half (bench.py:538: a memo hit, PCM16
+    # render, pull), the render's device time, a fresh program and
+    # prepare, one profiler window
+    walls = []
+    for _ in range(TIMED_RENDERS):
+        t0 = time.perf_counter()
+        grid.render_mixdown(project, pcm16=True, device=dev)
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    n_total, rows = entry["n_total"], entry["rows"]
+    prep = entry["prep"][(True, str(torch.device(dev)))]
+
+    def device_render():
+        return grid._device_mixdown(n_total, rows, device_out=True,
+                                    prepared=prep)
+
+    device_ms = cuda_ms(device_render, TIMED_RENDERS)
+    # no host sync inside a render: the max, its scale and every seed
+    # stay on the device
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        device_render()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    # run()'s host parts: the memo-hit key and the pull
+    key_s, pull_s = [], []
+    for _ in range(TIMED_RENDERS):
+        t0 = time.perf_counter()
+        grid.build_mix_program_cached(project)
+        key_s.append(time.perf_counter() - t0)
+        y = device_render()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y.cpu().numpy()
+        pull_s.append(time.perf_counter() - t0)
+    fresh_s = []
+    for _ in range(TIMED_RENDERS):
+        grid._BANK_CACHE.clear()
+        t0 = time.perf_counter()
+        n, r = grid._build_mix_program(project)
+        grid.prepare_device_mix(n, r, pcm16=True, device=dev)
+        torch.cuda.synchronize()
+        fresh_s.append(time.perf_counter() - t0)
+    prof = profile_renders(device_render, PROFILED_RENDERS)
+    print(f"timing: bench run() grid half wall median {wall * 1e3:.2f} ms "
+          f"of {TIMED_RENDERS} (memo hit, PCM16 render, pull) -> realtime "
+          f"x{GRID_SECONDS / wall:.1f}; device {device_ms:.3f} ms "
+          f"(_device_mixdown, device_out, pcm16); fresh _build_mix_program "
+          f"+ prepare_device_mix median "
+          f"{statistics.median(fresh_s) * 1e3:.2f} ms; in run(): memo-hit "
+          f"key {statistics.median(key_s) * 1e3:.3f} ms, pull of "
+          f"{GRID_FRAMES * 2 / 1e6:.2f} MB "
+          f"{statistics.median(pull_s) * 1e3:.3f} ms; no host sync inside "
+          f"a render {card}", flush=True)
+    if prof:
+        print(f"profile ({PROFILED_RENDERS} renders): "
+              f"{prof['events_per_render']:.0f} device events per render, "
+              f"device-busy {prof['busy_ms_per_render']:.3f} ms per render "
+              f"({prof['busy_ms_per_render'] / device_ms:.1%} of the "
+              f"device time) {card}", flush=True)
+        for name, t, c in prof["top"]:
+            print(f"profile:   {t:.3f} ms {c:.0f}x {name}", flush=True)
+    else:
+        print("profile: the profiler saw no device event; launches and "
+              "busy time not measured", flush=True)
+    return {"launches": launches, "run_wall_ms": wall * 1e3,
+            "device_ms": device_ms,
+            "fresh_ms": statistics.median(fresh_s) * 1e3,
+            "key_ms": statistics.median(key_s) * 1e3,
+            "pull_ms": statistics.median(pull_s) * 1e3,
+            "events_per_render": prof.get("events_per_render"),
+            "busy_ms_per_render": prof.get("busy_ms_per_render"),
+            "checks": figs}
+
+
 def main() -> int:
     # ---- 1. probe
     if not torch.cuda.is_available():
@@ -1131,6 +1327,7 @@ def main() -> int:
     lr_row = tape_path(dev, card)
     pl_oa = patternlab_path(dev, card)
     sr_row = scrub_path(dev, card)
+    grid_path(dev, card)
     oa_row["launches_by_path"] = {"microsound": oa_row["launches"],
                                   "patternlab": pl_oa["launches"]}
     oa_row["launches"] += pl_oa["launches"]

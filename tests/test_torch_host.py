@@ -5,12 +5,15 @@ of the JAX package:
 - ``events.schedulers.generate_event_times``, every process;
 - ``utils.breakpoints``: parse and evaluate valid, empty and malformed lanes;
 - ``utils.io`` / ``utils.wavcodec``: byte-identical WAV files, equal arrays
-  from ``load_wav_mono`` and the resamplers;
+  from ``load_wav_mono``, the resamplers, ``fit_to_duration`` and the
+  peak normalizers;
 - ``utils.native_rt``: the port's g++ loader gives the JAX package's tape
-  tables;
-- a static walk of ``audio_suite_torch/**/*.py``, ``chip_smoke.py`` and
-  the A/B scripts ``oa_ab.py`` and ``read_ab.py`` finds no import of
-  ``audio_suite_tpu`` or ``jax``.
+  tables and grid placements, and raises when the build fails;
+- ``plugins.host``: the same arity errors as the JAX package's, and its
+  own path-keyed module cache;
+- a static walk of ``audio_suite_torch/**/*.py`` (``plugins/`` included),
+  ``chip_smoke.py`` and the A/B scripts ``oa_ab.py`` and ``read_ab.py``
+  finds no import of ``audio_suite_tpu`` or ``jax``.
 """
 import ast
 import glob
@@ -21,11 +24,13 @@ import pytest
 
 from audio_suite_tpu.events import schedulers as j_sched
 from audio_suite_tpu.models import tape as jt
+from audio_suite_tpu.plugins import host as j_host
 from audio_suite_tpu.utils import breakpoints as j_bp
 from audio_suite_tpu.utils import io as j_io
 from audio_suite_tpu.utils import native_rt as j_nrt
 from audio_suite_torch.events import schedulers as t_sched
 from audio_suite_torch.models import tape as tt
+from audio_suite_torch.plugins import host as t_host
 from audio_suite_torch.utils import breakpoints as t_bp
 from audio_suite_torch.utils import io as t_io
 from audio_suite_torch.utils import native_rt as t_nrt
@@ -137,6 +142,109 @@ def test_resamplers_match_jax(in_sr, out_sr, n):
     assert np.array_equal(t_io.to_mono(x), j_io.to_mono(x))
 
 
+@pytest.mark.parametrize("seed,n,sr,duration", [
+    (0, 1000, 8000, 0.125), (1, 1000, 8000, 0.1), (2, 999, 8000, 0.2),
+    (3, 50, 44100, 0.0), (4, 0, 48000, 0.01), (5, 4410, 44100, 0.1000001)])
+def test_fit_to_duration_matches_jax(seed, n, sr, duration):
+    x = np.random.default_rng(seed).uniform(-1.5, 1.5, n)
+    for arr in (x, x.astype(np.float32)):
+        got = t_io.fit_to_duration(arr, sr, duration)
+        want = j_io.fit_to_duration(arr, sr, duration)
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("scale", [0.0, 1e-13, 0.3, 0.98, 1.0, 7.5])
+@pytest.mark.parametrize("peak", [0.98, 0.5])
+def test_normalizers_match_jax(scale, peak):
+    x = (np.random.default_rng(int(scale * 10)).uniform(-1, 1, 777)
+         * scale).astype(np.float32)
+    for fn in ("normalize_peak", "normalize_full"):
+        for arr in (x, x.astype(np.float64), x[:0]):
+            got = getattr(t_io, fn)(arr, peak)
+            want = getattr(j_io, fn)(arr, peak)
+            assert got.dtype == want.dtype and np.array_equal(got, want), fn
+
+
+_CELLS = {
+    "ok_gen": "def generate(sr, duration):\n    return [0.0] * 4\n",
+    "ok_both": ("def generate(sr, duration, context):\n    return []\n"
+                "def event(context):\n    return {}\n"),
+    "ok_event": "def event(ctx):\n    return None\n",
+    "gen_one_arg": "def generate(sr):\n    return []\n",
+    "gen_four_args": "def generate(a, b, c, d):\n    return []\n",
+    "event_two_args": ("def generate(sr, d):\n    return []\n"
+                       "def event(a, b):\n    return None\n"),
+    "neither": "x = 1\n",
+}
+
+
+@pytest.mark.parametrize("name", list(_CELLS))
+def test_load_py_module_matches_jax(tmp_path, name):
+    path = tmp_path / f"{name}.py"
+    path.write_text(_CELLS[name])
+    try:
+        want = j_host.load_py_module(str(path))
+    except RuntimeError as e:
+        with pytest.raises(RuntimeError) as got:
+            t_host.load_py_module(str(path))
+        assert str(got.value) == str(e)
+        assert str(path) not in t_host._MODULE_CACHE
+        return
+    got = t_host.load_py_module(str(path))
+    assert (got.generate is None) == (want.generate is None)
+    assert (got.event is None) == (want.event is None)
+    # a cache of its own, keyed on the path
+    assert t_host.load_py_module(str(path)) is got
+    assert got is not want and got.mod is not want.mod
+    assert t_host._MODULE_CACHE is not j_host._MODULE_CACHE
+    t_host.clear_module_cache()
+    assert t_host.load_py_module(str(path)) is not got
+    assert j_host.load_py_module(str(path)) is want
+
+
+def _grid_speed(n, seed):
+    rng = np.random.default_rng(seed)
+    return np.rint(rng.uniform(0.25, 4.0, n) * (1 << 22)).astype(np.float32) \
+        * np.float32(1.0 / (1 << 22))
+
+
+# (pat_n, start_idx, loop, speed, resets, pre_phase)
+_PLACEMENTS = {
+    "loop": (700, 0, True, None, (), 0.0),
+    "nonloop": (700, 0, False, None, (), 0.0),
+    "loop_resets_speed": (500, 0, True, "speed", (640, 1777, 2930), 0.0),
+    "nonloop_resets_speed": (500, 90, False, "speed", (640, 1777), 0.0),
+    "negative_unit_pre_phase": (700, -400, True, None, (1200,), 400.0),
+    "negative_speed_pre_phase": (700, -300, False, "speed", (), "sum"),
+    "negative_no_pre_phase": (700, -300, True, "speed", (2000,), 0.0),
+    "negative_nonloop_no_pre_phase": (700, -250, False, None, (), 0.0),
+    "short_speed_array": (333, 10, True, "short", (4000,), 0.0),
+}
+
+
+@pytest.mark.parametrize("case", list(_PLACEMENTS))
+def test_grid_placement_matches_jax(case):
+    pat_n, start, loop, sp, resets, pre = _PLACEMENTS[case]
+    n = 5000
+    speed = {None: None, "speed": _grid_speed(n, len(case)),
+             "short": _grid_speed(n // 2, 1)}[sp]
+    if pre == "sum":
+        pre = float(np.sum(speed[:-start].astype(np.float64)))
+    got = t_nrt.grid_placement(n, pat_n, start, loop, speed, set(resets),
+                               pre)
+    want = j_nrt.grid_placement(n, pat_n, start, loop, speed, set(resets),
+                                pre)
+    assert want is not None
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    assert got[1].any()
+
+
+def test_grid_placement_rejects_an_empty_pattern():
+    with pytest.raises(ValueError, match="pat_n 0"):
+        t_nrt.grid_placement(100, 0, 0, True, None, set(), 0.0)
+
+
 def _golden_tape(mod):
     p = mod.TapeParams(
         sample_rate=goldens.SR, markers=[4000, 9000, 13000],
@@ -173,6 +281,8 @@ def test_port_loader_raises_on_a_failed_build(monkeypatch, tmp_path):
     monkeypatch.setattr(t_nrt, "_lib", None)
     with pytest.raises(RuntimeError, match="g\\+\\+ failed to build"):
         t_nrt.get_lib()
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed to build"):
+        t_nrt.grid_placement(100, 10, 0, True, None, set(), 0.0)
 
 
 def _port_sources():
@@ -181,6 +291,15 @@ def _port_sources():
     return files + [os.path.join(REPO, f) for f in ("chip_smoke.py",
                                                      "oa_ab.py",
                                                      "read_ab.py")]
+
+
+def test_import_walk_covers_every_subpackage():
+    walked = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for sub in ("events", "kernels", "models", "ops", "plugins", "utils"):
+        assert os.path.join("audio_suite_torch", sub, "__init__.py") \
+            in walked, sub
+    assert os.path.join("audio_suite_torch", "plugins", "host.py") in walked
+    assert os.path.join("audio_suite_torch", "models", "grid.py") in walked
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -211,6 +330,8 @@ _ENTRY_POINTS = [
     ("patternlab", "MegaDriveInspiredSynth"),
     ("scrub", "render_scrub"), ("scrub", "scrub_render_kernel"),
     ("scrub", "scrub_render_segments"), ("scrub", "device_program"),
+    ("grid", "render_mixdown"), ("grid", "export_wav"),
+    ("grid", "prepare_device_mix"),
 ]
 # not entry points: a helper that moves arrays to the device it is given,
 # and a record that holds its device
@@ -221,7 +342,7 @@ _DEVICE_HELPERS = {("microsound", "program_to_device"),
 def _models():
     import importlib
     return {m: importlib.import_module(f"audio_suite_torch.models.{m}")
-            for m in ("microsound", "tape", "patternlab", "scrub")}
+            for m in ("microsound", "tape", "patternlab", "scrub", "grid")}
 
 
 @pytest.mark.parametrize("mod,name", _ENTRY_POINTS,
