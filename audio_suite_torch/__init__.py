@@ -31,7 +31,12 @@ Ported so far:
   and patterns -> per track, the mod-speed chain of ``ops/envdet.py``,
   segmented fixed-point positions and a gather from the gain-premultiplied
   pattern bank -> mix, clip, PCM16; and the host engine over the shared
-  C++ phase accumulator.
+  C++ phase accumulator;
+- the Forest Fire CA and its threshold rules (the second half of config
+  5): host NumPy init and brush edits -> per step, counter-noise draws from
+  per-cell hash keys computed once per ``simulate``, the spread stencil,
+  ember landings, regrowth and the stats row, all on the device -> the
+  stats pulled once -> ``events/rules.py`` thresholds -> OSC packets.
 
 Paths outside those slices raise ``NotImplementedError``.
 
@@ -51,9 +56,9 @@ Conventions:
   its own copies of the host modules it needs, each where the JAX package
   has the original (``events/schedulers.py``, ``events/notes.py``,
   ``utils/breakpoints.py``, ``utils/music.py``, ``utils/io.py`` with
-  ``utils/wavcodec.py``, ``plugins/host.py``), and its own loader of the
-  C++ host runtime ``native/ast_runtime.cpp`` (``utils/native_rt.py``),
-  the one source it shares.
+  ``utils/wavcodec.py``, ``plugins/host.py``, ``events/rules.py``), and
+  its own loader of the C++ host runtime ``native/ast_runtime.cpp``
+  (``utils/native_rt.py``), the one source it shares.
 """
 
 __version__ = "0.1.0"

@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Drives audio_suite_torch's five ported paths at full size on the card,
-in phases; any failure raises and the exit code is non-zero.  The paths:
+Drives audio_suite_torch's ported paths at full size on the card, in
+phases; any failure raises and the exit code is non-zero.  The paths:
 
 - Microsound: the bench's high-rate transient-field configuration
   (bench.py:343-354: 192 kHz, 4 s, 270 noise-burst grains, x100 time
@@ -23,7 +23,12 @@ in phases; any failure raises and the exit code is non-zero.  The paths:
   three-deep mod chain, sync points; 768 000 samples) and
   ``examples/grid_showcase.json`` (44.1 kHz, 12 s, restart cells, a
   non-loop track, normalize), rendered through
-  ``models.grid.render_mixdown``.
+  ``models.grid.render_mixdown``;
+- config 5 end to end (bench.py:527-541): the grid half, then the Forest
+  Fire CA at 220 x 160 (seed 2, ignited at (110, 80)) for 480 steps through
+  ``models.forestfire.ForestFireModel.simulate``, then one threshold rule
+  over the stats through ``events.rules.WatchEngine.run_stream`` into an
+  OSC recorder.
 
 Phases:
 
@@ -82,7 +87,23 @@ Phases:
    included), the render's device time, a fresh program and prepare, and
    one profiler window, with run()'s memo-hit key and pull timed apart
    and one render run under ``torch.cuda.set_sync_debug_mode("error")``
-   (no host sync inside a render).
+   (no host sync inside a render);
+8. config 5 end to end: the bench's ``run()`` (grid mixdown in PCM16,
+   ``simulate(480)``, ``run_stream``) once with every hand-kernel launch
+   counted (the path reaches none: the JAX CA is one ``jax.jit`` of XLA
+   ops); output checks (the stats' shape, step column and cell counts, a
+   fire that takes and sends); ``simulate(480)`` on the card from a fresh
+   model bit-equal to the port's CPU run in the stats, the state, fuel,
+   moisture and age planes and the OSC packets, and the same for
+   ``fast_noise`` over 120 steps; the trajectory's figures (burning peak,
+   ignitions, embers, rain steps, OSC messages); the step loop of
+   ``simulate(4)`` under ``torch.cuda.set_sync_debug_mode("error")``;
+   timing of ``run()`` (its grid, CA and rules parts) and of
+   ``simulate(480)`` alone from fresh models, 3 calls each, with steps per
+   second against the 30 Hz tick; the step loop's device window and one
+   profiler window of 10 steps (device events and busy ms per step, top
+   kernels), and one of the same steps with the noise draws served from a
+   cache (``CachedDraws``): the difference is the draws' share.
 
 Every kernel's launch count is set to 0 just before a path is driven and
 read just after it.  A kernel is timed twice.  Warm (its ``ms``, the
@@ -138,6 +159,11 @@ SCRUB_SECONDS, SCRUB_TAPE = 30.0, 10.0   # bench config 2's render and tape
 SCRUB_FRAMES = 1439744  # its output frames: 1 406 blocks of 1 024
 GRID_SECONDS = 16.0    # bench config 5's master length
 GRID_FRAMES = 768000   # its samples at 48 kHz
+FIRE_STEPS = 480       # bench config 5's CA steps: 16 s at the 30 Hz tick
+FIRE_FAST_STEPS = 120  # the fast_noise check's steps
+FIRE_TICK_HZ = 30.0    # the reference's tick rate (bench.py:534)
+TIMED_FIRE = 3         # timed 480-step calls (each takes seconds)
+PROFILED_STEPS = 10    # CA steps in the profiler window
 
 
 def config3(full: bool):
@@ -257,6 +283,23 @@ def config5(seconds: float):
     return grid.GridProject(tracks=tracks,
                             master=grid.MasterClock("fixed_seconds", seconds),
                             sample_rate=48000)
+
+
+def config5_fire(device, fast_noise: bool = False):
+    """bench.py:527-533: the second half of bench config 5, the Forest Fire
+    CA at its default 220 x 160 (seed 2, ignited at (110, 80), radius 4)
+    and one rising-edge rule, burning > 50, on a fixed clock: (model,
+    engine, recorder)."""
+    from audio_suite_torch.events import rules
+    from audio_suite_torch.models import forestfire as ff
+    model = ff.ForestFireModel(ff.ModelParams(fast_noise=fast_noise), seed=2,
+                               device=device)
+    model.ignite_at(110, 80, radius=4)
+    eng = rules.WatchEngine(now_fn=lambda: 0.0)
+    eng.set_rules([rules.ThresholdRule(metric_key="burning", op=">",
+                                       threshold=50, edge="rising",
+                                       cooldown_s=0.0)])
+    return model, eng, rules.OSCRecorder()
 
 
 def config2_positions(dev):
@@ -1293,6 +1336,187 @@ def grid_path(dev, card: str) -> dict:
             "checks": figs}
 
 
+class CachedDraws:
+    """``ops/noise.py`` for the CA's step loop, each draw served from a dict
+    after its first call: a profiler window of the loop run through it
+    sees every launch but the noise draws', so the difference to the real
+    loop is the draws' share.  A draw is keyed by its function and its
+    host arguments (seed, stream): one model's loop, one grid."""
+
+    def __init__(self):
+        from audio_suite_torch.ops import noise
+        self._noise, self._memo = noise, {}
+
+    def __getattr__(self, name):
+        fn = getattr(self._noise, name)
+
+        def cached(*args):
+            key = (name,) + tuple(a for a in args
+                                  if not isinstance(a, torch.Tensor))
+            if key not in self._memo:
+                self._memo[key] = fn(*args)
+            return self._memo[key]
+        return cached
+
+
+def fire_check(label: str, dev, steps: int, fast_noise: bool) -> tuple:
+    """Config 5's CA and rule from a fresh model, ``steps`` steps on the card
+    and on the CPU: stats, the four planes and the OSC packets must be
+    equal; returns (stats, packets)."""
+    from audio_suite_torch.models import forestfire as ff
+    runs = []
+    for device in (dev, "cpu"):
+        model, eng, rec = config5_fire(device, fast_noise)
+        stats = model.simulate(steps)
+        eng.run_stream(ff.stats_rows_to_dicts(stats), rec.send)
+        runs.append((stats, model._np, rec.packets))
+    (s_gpu, np_gpu, p_gpu), (s_cpu, np_cpu, p_cpu) = runs
+    if not np.array_equal(s_gpu, s_cpu):
+        rows = np.nonzero((s_gpu != s_cpu).any(axis=1))[0]
+        raise AssertionError(f"{label}: card stats differ from the CPU run's "
+                             f"from step {int(rows[0]) + 1}")
+    for k in ("state", "fuel", "moisture", "age"):
+        diff = int((np_gpu[k] != np_cpu[k]).sum())
+        if diff:
+            raise AssertionError(f"{label}: card {k} plane differs from the "
+                                 f"CPU run's in {diff} cells")
+    if p_gpu != p_cpu:
+        raise AssertionError(f"{label}: OSC packets differ from the CPU run's")
+    return s_gpu, p_gpu
+
+
+def fire_path(dev, card: str, grid_run_ms: float):
+    """Phase 8: bench config 5 end to end (bench.py:538-541: the grid
+    mixdown, the CA's 480 steps, the rules over their stats); the path
+    reaches no hand kernel."""
+    from audio_suite_torch.models import forestfire as ff
+    from audio_suite_torch.models import grid
+
+    project = config5(GRID_SECONDS)
+    model, eng, rec = config5_fire(dev)
+    cells = model.params.w * model.params.h
+
+    def run(split=None):
+        t0 = time.perf_counter()
+        mix = grid.render_mixdown(project, pcm16=True, device=dev)
+        t1 = time.perf_counter()
+        stats = model.simulate(FIRE_STEPS)
+        t2 = time.perf_counter()
+        eng.run_stream(ff.stats_rows_to_dicts(stats), rec.send)
+        t3 = time.perf_counter()
+        if split is not None:
+            split.append((t1 - t0, t2 - t1, t3 - t2, t3 - t0))
+        return mix, stats
+
+    # the main path, every launch counted: one run() from the bench's start
+    reset_counts()
+    mix, stats = run()
+    launches = read_counts()
+    if mix.shape != (GRID_FRAMES,) or mix.dtype != np.int16:
+        raise AssertionError(f"config 5's mixdown gave {mix.shape} "
+                             f"{mix.dtype}")
+    if stats.shape != (FIRE_STEPS, 8) or stats.dtype != np.int32:
+        raise AssertionError(f"simulate gave {stats.shape} {stats.dtype}")
+    if not np.array_equal(stats[:, 0], np.arange(1, FIRE_STEPS + 1)):
+        raise AssertionError(f"the stats' step column is not 1..{FIRE_STEPS}")
+    if not (stats[:, 1:5].sum(axis=1) == cells).all():
+        raise AssertionError("trees + burning + ash + empty != the grid")
+    if stats[:, 2].max() <= 50 or not rec.packets:
+        raise AssertionError(f"the fire did not take: burning peak "
+                             f"{stats[:, 2].max()}, {len(rec.packets)} OSC "
+                             "messages")
+
+    # the card against the port's CPU run, from fresh models
+    s_def, p_def = fire_check("config 5", dev, FIRE_STEPS, False)
+    if not np.array_equal(s_def, stats) or p_def != rec.packets:
+        raise AssertionError("a fresh model's run differs from run()'s")
+    s_fast, p_fast = fire_check("config 5, fast_noise", dev, FIRE_FAST_STEPS,
+                                True)
+    for label, s, p in (("default noise", s_def, p_def),
+                        ("fast_noise", s_fast, p_fast)):
+        print(f"fire {label}: {len(s)} steps on {model.params.w} x "
+              f"{model.params.h}, burning peak {int(s[:, 2].max())} (step "
+              f"{int(s[:, 2].argmax()) + 1}), ignitions {int(s[:, 5].sum())}, "
+              f"embers {int(s[:, 6].sum())}, rain steps {int(s[:, 7].sum())}, "
+              f"final trees {int(s[-1, 1])} ash {int(s[-1, 3])}; "
+              f"{len(p)} OSC messages; stats, state, fuel, moisture, age and "
+              f"packets bit-equal to the CPU run", flush=True)
+    print(f"fire: hand-kernel launches {launches} (none on this path)",
+          flush=True)
+
+    # no host sync in the step loop: simulate(4)'s loop, the one pull at
+    # its end left out (that pull is the sync the loop saves for its end)
+    carry = model._carry()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, stats4 = ff._sim(carry, 4, model.params, model.seed)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if stats4.shape != (4, 8):
+        raise AssertionError(f"the checked loop gave {tuple(stats4.shape)}")
+
+    # timing: the bench's run() (the model carries on, as in the bench),
+    # simulate(480) alone from fresh models, the step loop's device window
+    # and one profiler window
+    split = []
+    for _ in range(TIMED_FIRE):
+        run(split)
+    run_s = statistics.median(s[3] for s in split)
+    sims = []
+    for _ in range(TIMED_FIRE):
+        m = config5_fire(dev)[0]
+        t0 = time.perf_counter()
+        m.simulate(FIRE_STEPS)
+        sims.append(time.perf_counter() - t0)
+    sim_s = statistics.median(sims)
+    step_ms = cuda_ms(lambda: ff._sim(carry, PROFILED_STEPS, model.params,
+                                      model.seed), TIMED_FIRE) \
+        / PROFILED_STEPS
+    prof = profile_renders(lambda: ff._sim(carry, PROFILED_STEPS,
+                                           model.params, model.seed), 1)
+    with mock.patch.object(ff, "noise", CachedDraws()):
+        prof_nodraw = profile_renders(lambda: ff._sim(
+            carry, PROFILED_STEPS, model.params, model.seed), 1)
+    part = [statistics.median(s[i] for s in split) * 1e3 for i in range(3)]
+    print(f"timing: bench run() wall median {run_s * 1e3:.1f} ms of "
+          f"{TIMED_FIRE} (grid {part[0]:.2f} ms, simulate({FIRE_STEPS}) "
+          f"{part[1]:.1f} ms, rules {part[2]:.2f} ms; the grid alone in "
+          f"phase 7: {grid_run_ms:.2f} ms); simulate({FIRE_STEPS}) "
+          f"from a fresh model {sim_s * 1e3:.1f} ms median of {TIMED_FIRE} "
+          f"({[round(s * 1e3, 1) for s in sims]} ms) -> "
+          f"{FIRE_STEPS / sim_s:.1f} steps/s, "
+          f"x{FIRE_STEPS / sim_s / FIRE_TICK_HZ:.2f} the "
+          f"{FIRE_TICK_HZ:.0f} Hz tick; the step loop's device window "
+          f"{step_ms:.3f} ms per step {card}", flush=True)
+    if prof:
+        per = {k: prof[k] / PROFILED_STEPS for k in ("events_per_render",
+                                                     "busy_ms_per_render")}
+        print(f"profile ({PROFILED_STEPS} steps): "
+              f"{per['events_per_render']:.1f} device events per step, "
+              f"device-busy {per['busy_ms_per_render']:.3f} ms per step "
+              f"({per['busy_ms_per_render'] / step_ms:.1%} of the device "
+              f"window) {card}", flush=True)
+        for name, t, c in prof["top"]:
+            print(f"profile:   {t / PROFILED_STEPS:.4f} ms "
+                  f"{c / PROFILED_STEPS:.1f}x per step {name}", flush=True)
+        if prof_nodraw:
+            rest = {k: prof_nodraw[k] / PROFILED_STEPS
+                    for k in ("events_per_render", "busy_ms_per_render")}
+            ev = per["events_per_render"] - rest["events_per_render"]
+            busy = per["busy_ms_per_render"] - rest["busy_ms_per_render"]
+            print(f"profile: the noise draws (the step loop with its draws "
+                  f"served from a cache, less the real loop): {ev:.1f} "
+                  f"device events ({ev / per['events_per_render']:.1%}) and "
+                  f"{busy:.3f} ms busy "
+                  f"({busy / per['busy_ms_per_render']:.1%}) per step; the rest {rest['events_per_render']:.1f} "
+                  f"events, {rest['busy_ms_per_render']:.3f} ms {card}",
+                  flush=True)
+    else:
+        print("profile: the profiler saw no device event; launches and "
+              "busy time not measured", flush=True)
+
+
 def main() -> int:
     # ---- 1. probe
     if not torch.cuda.is_available():
@@ -1319,7 +1543,7 @@ def main() -> int:
     print(f"build: {len(built)} kernels in {time.perf_counter() - t0:.2f} s",
           flush=True)
 
-    # ---- 3.-6. the paths; the overlap-add runs on two of them, so its
+    # ---- 3.-8. the paths; the overlap-add runs on two of them, so its
     # row counts the launches of both and holds config 4's figures; the
     # lerp read's clamp form carries the tape, its fused scrub form (a
     # second kernel of the same source) the scrub
@@ -1327,7 +1551,8 @@ def main() -> int:
     lr_row = tape_path(dev, card)
     pl_oa = patternlab_path(dev, card)
     sr_row = scrub_path(dev, card)
-    grid_path(dev, card)
+    grid = grid_path(dev, card)
+    fire_path(dev, card, grid["run_wall_ms"])
     oa_row["launches_by_path"] = {"microsound": oa_row["launches"],
                                   "patternlab": pl_oa["launches"]}
     oa_row["launches"] += pl_oa["launches"]

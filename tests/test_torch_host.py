@@ -13,7 +13,13 @@ of the JAX package:
   own path-keyed module cache;
 - a static walk of ``audio_suite_torch/**/*.py`` (``plugins/`` included),
   ``chip_smoke.py`` and the A/B scripts ``oa_ab.py`` and ``read_ab.py``
-  finds no import of ``audio_suite_tpu`` or ``jax``.
+  finds no import of ``audio_suite_tpu`` or ``jax``;
+- every entry point defaults to ``device="cuda"``;
+- the scrub's increments and Microsound's noise draws are the same with
+  Python int seeds and streams kept on the host as they were when every
+  argument was copied to the device.
+
+(``events/rules.py``, another copy, is held in ``test_torch_rules.py``.)
 """
 import ast
 import glob
@@ -300,6 +306,9 @@ def test_import_walk_covers_every_subpackage():
             in walked, sub
     assert os.path.join("audio_suite_torch", "plugins", "host.py") in walked
     assert os.path.join("audio_suite_torch", "models", "grid.py") in walked
+    assert os.path.join("audio_suite_torch", "models", "forestfire.py") \
+        in walked
+    assert os.path.join("audio_suite_torch", "events", "rules.py") in walked
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -332,6 +341,7 @@ _ENTRY_POINTS = [
     ("scrub", "scrub_render_segments"), ("scrub", "device_program"),
     ("grid", "render_mixdown"), ("grid", "export_wav"),
     ("grid", "prepare_device_mix"),
+    ("forestfire", "ForestFireModel"), ("forestfire", "carry_from_state"),
 ]
 # not entry points: a helper that moves arrays to the device it is given,
 # and a record that holds its device
@@ -342,7 +352,8 @@ _DEVICE_HELPERS = {("microsound", "program_to_device"),
 def _models():
     import importlib
     return {m: importlib.import_module(f"audio_suite_torch.models.{m}")
-            for m in ("microsound", "tape", "patternlab", "scrub", "grid")}
+            for m in ("microsound", "tape", "patternlab", "scrub", "grid",
+                      "forestfire")}
 
 
 @pytest.mark.parametrize("mod,name", _ENTRY_POINTS,
@@ -367,3 +378,57 @@ def test_every_model_function_with_a_device_is_an_entry_point():
             if "device" in params:
                 assert ((mod, name) in _ENTRY_POINTS
                         or (mod, name) in _DEVICE_HELPERS), (mod, name)
+
+
+def _pre_repair_normal(seed, idx, stream=0):
+    """ops/noise.py:normal as it was before Python int seeds and streams
+    stayed on the host: every argument went through ``torch.as_tensor``
+    onto idx's device and each of the 12 uniforms hashed (seed, idx)
+    anew."""
+    import torch
+    from audio_suite_torch.ops import noise as tn
+
+    def as_u32(x):
+        return torch.as_tensor(x, device=idx.device).to(torch.int64) \
+            & tn._MASK32
+
+    acc = None
+    for k in range(12):
+        h = tn._mix((tn._mul32(as_u32(seed), tn._GOLDEN)
+                     + tn._mul32(as_u32(idx), tn._M1)
+                     + tn._mul32(as_u32(stream * 12 + k + 1), tn._M2))
+                    & tn._MASK32)
+        u = (h >> 8).to(torch.float32) * tn._INV24
+        acc = u if acc is None else acc + u
+    return acc - 6.0
+
+
+def test_scrub_and_microsound_noise_unchanged_by_the_host_seed_repair():
+    from unittest import mock
+
+    import torch
+    from audio_suite_torch.models import scrub as ts
+    from audio_suite_torch.ops import fixq as tfq
+    from audio_suite_torch.ops import generators as tgen
+    from audio_suite_torch.ops import noise as tn
+
+    rng = np.random.default_rng(8)
+    nb, bs = 23, 1024
+    base = tfq.round_sig12_np(rng.uniform(-0.9, 0.9, nb).astype(np.float32))
+    jsq = tfq.round_sig12_np(rng.uniform(0, 0.007, nb).astype(np.float32))
+    c = ts._mod_consts(48000)
+    args = (torch.from_numpy(base), torch.from_numpy(jsq), 1234, bs,
+            (c["ints"], c["flts"]))
+    n = torch.tensor([[700], [1000], [999]])
+    seeds = torch.tensor([[5], [6], [0x7FFFFFFF]])
+    k = torch.arange(513)
+    got = (ts._inc_device(*args), tgen._tilted_noise(n, seeds, -3.0, 1024,
+                                                     1024),
+           tn.normal(seeds, k, tgen.STREAM_TILT_IM))
+    with mock.patch.object(tn, "normal", _pre_repair_normal):
+        want = (ts._inc_device(*args),
+                tgen._tilted_noise(n, seeds, -3.0, 1024, 1024),
+                tn.normal(seeds, k, tgen.STREAM_TILT_IM))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert np.array_equal(got[0].numpy(), ts._inc_np(base, jsq, 1234, bs, c))
