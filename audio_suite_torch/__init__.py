@@ -7,11 +7,16 @@ and is held against it by ``tests/test_torch_*.py``.
 
 Ported so far:
 
-- the Microsound render of the "Noise burst" generator with a shared
-  stretch factor (the bench's high-rate transient-field configuration),
-  end to end: host event program -> grain spectrum draw -> lowpass +
-  spectral stretch -> ordered overlap-add -> ADSR, ER/IR convolution,
-  stereo diffusion, soft clip, normalize, PCM16;
+- Microsound, every render path (the bench's high-rate transient-field
+  configuration and the reference app's factory settings): host event
+  program with per-event aux draws -> one of eleven grain generators (the
+  stick-slip, micro-chaos and waveguide recurrences in
+  ``kernels/grain_scan.cu``) -> the spectral chain (fused lowpass +
+  stretch, or warps, cepstral warp, partial lock), resonator, waveguide,
+  multi-band unfold -> feedback / imprint across events -> ordered
+  overlap-add -> ADSR, ER/IR convolution, stereo diffusion, soft clip,
+  normalize, PCM16; its transforms and transcendentals evaluate in f64
+  and round once, so the card's grains are the CPU's;
 - the tape engine's device render (the bench's chopped varispeed
   configuration): host control tables from the shared C++ runtime ->
   wow/flutter synthesis, speed runs, segmented fixed-point positions,

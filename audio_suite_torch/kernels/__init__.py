@@ -82,6 +82,16 @@ _SIGNATURES = {
                       ctypes.c_int),
         "lr_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
+    "grain_scan": {
+        "gs_stick_slip": ([_P, _P, _P, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_float, ctypes.c_float, ctypes.c_float,
+                           ctypes.c_float, _P], ctypes.c_int),
+        "gs_chaos": ([_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_float, _P], ctypes.c_int),
+        "gs_waveguide": ([_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, _P], ctypes.c_int),
+        "gs_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
 }
 MAX_HEADS = 3           # scrub_read_kernel's head slots (lerp_read.cu)
 
@@ -244,3 +254,96 @@ def scrub_read(audio: torch.Tensor, whole: torch.Tensor, frac: torch.Tensor,
 
 
 scrub_read.launches = 0
+
+
+def _scan_check(name: str, tensors, dtypes, shapes):
+    """The grain-scan wrappers' checks: every tensor on one CUDA device,
+    contiguous, of its dtype and shape."""
+    dev = tensors[0].device
+    for t, dt, shp in zip(tensors, dtypes, shapes):
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name} kernel: tensors must share one CUDA "
+                             "device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} kernel: tensors must be contiguous")
+        if t.dtype != dt:
+            raise TypeError(f"{name} kernel: wants {dt}, got {t.dtype}")
+        if tuple(t.shape) != tuple(shp):
+            raise ValueError(f"{name} kernel: wants shape {tuple(shp)}, "
+                             f"got {tuple(t.shape)}")
+
+
+def _gs_run(fn: str, dev, *args):
+    lib = _lib("grain_scan")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, fn)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"grain_scan kernel {fn} launch failed: "
+                           + lib.gs_error_string(rc).decode())
+
+
+def stick_slip_scan(bn: torch.Tensor, on: torch.Tensor, threshold: float,
+                    build: float, decay: float, noise_amt: float
+                    ) -> torch.Tensor:
+    """Launch ``grain_scan.cu``'s stick-slip recurrence on the current
+    stream and return the new xs f32 [E, L] from the noise rows bn, on
+    f32 [E, L] (contiguous, on one CUDA device); the scalars are f32
+    values."""
+    E, L = bn.shape
+    _scan_check("stick_slip", (bn, on), (torch.float32,) * 2, ((E, L),) * 2)
+    xs = torch.empty_like(bn)
+    if E and L:
+        _gs_run("gs_stick_slip", bn.device, bn.data_ptr(), on.data_ptr(),
+                xs.data_ptr(), E, L, threshold, build, decay, noise_amt)
+        stick_slip_scan.launches += 1
+    return xs
+
+
+stick_slip_scan.launches = 0
+
+
+def chaos_scan(gates: torch.Tensor, y0: torch.Tensor, r: float,
+               gate: float) -> torch.Tensor:
+    """Launch ``grain_scan.cu``'s gated logistic map on the current stream
+    and return the new xs f32 [E, L] from gates f32 [E, L] and the starts
+    y0 f32 [E]."""
+    E, L = gates.shape
+    _scan_check("chaos", (gates, y0), (torch.float32,) * 2, ((E, L), (E,)))
+    xs = torch.empty_like(gates)
+    if E and L:
+        _gs_run("gs_chaos", gates.device, gates.data_ptr(), y0.data_ptr(),
+                xs.data_ptr(), E, L, r, gate)
+        chaos_scan.launches += 1
+    return xs
+
+
+chaos_scan.launches = 0
+
+
+def waveguide_scan(x: torch.Tensor, d: torch.Tensor, g: torch.Tensor,
+                   mix: torch.Tensor, dmax: int) -> torch.Tensor:
+    """Launch ``grain_scan.cu``'s waveguide delay lines on the current
+    stream and return the new y f32 [E, L] from x f32 [E, L], the delays
+    d i32 [E, lines], the gains g and the mixes f32 [E, lines].  ``dmax``
+    is at least every d (the program's ``wg_dmax``): each event's ring
+    takes min(dmax, L) floats of scratch."""
+    E, L = x.shape
+    lines = d.shape[1] if d.dim() == 2 else -1
+    _scan_check("waveguide", (x, d, g, mix),
+                (torch.float32, torch.int32, torch.float32, torch.float32),
+                ((E, L), (E, lines), (E, lines), (E, lines)))
+    y = torch.empty_like(x)
+    if E and L and lines > 0:
+        cap = max(1, min(int(dmax), L))
+        ring = torch.empty(E * cap, dtype=torch.float32, device=x.device)
+        _gs_run("gs_waveguide", x.device, x.data_ptr(), d.data_ptr(),
+                g.data_ptr(), mix.data_ptr(), y.data_ptr(), ring.data_ptr(),
+                E, L, lines, cap)
+        waveguide_scan.launches += 1
+    else:
+        y.copy_(x)
+    return y
+
+
+waveguide_scan.launches = 0

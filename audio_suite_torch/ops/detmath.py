@@ -252,3 +252,18 @@ def phase_cycles_np(i, num, m, inv_m):
     i = np.asarray(i, np.uint32)
     r = ((i % np.uint32(m)) * np.uint32(num)) % np.uint32(m)
     return (r.astype(np.float32) * np.float32(inv_m)).astype(np.float32)
+
+
+def rounded(fn, *args) -> torch.Tensor:
+    """``fn`` (a transcendental: exp, cos, log, pow, tanh, a complex
+    magnitude or angle) evaluated on f64 copies of its tensor arguments
+    and rounded once to f32 (complex64).  The card's and the CPU's f32
+    exp / cos / pow differ in the last ulp; their f64 results differ by
+    ~1e-16, which rounds to the same f32 on both (but for a result within
+    1e-16 of a rounding midpoint), so Microsound's grains come out the
+    same on every device.  A loud mix's soft clip turns an ulp of the mix
+    into -100 dBFS, which a device-dependent ulp would cross."""
+    wide = [a.to(torch.complex128 if a.is_complex() else torch.float64)
+            if isinstance(a, torch.Tensor) else a for a in args]
+    out = fn(*wide)
+    return out.to(torch.complex64 if out.is_complex() else torch.float32)

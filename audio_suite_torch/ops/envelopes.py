@@ -16,6 +16,8 @@ import math
 import numpy as np
 import torch
 
+from . import detmath
+
 
 def adsr_clamped(i, n, A, D, R, s):
     """Stage-clamped ADSR (envelopes.py:17): stage lengths clamped to the
@@ -138,7 +140,7 @@ def make_adsr(n: int, sr: int, a_ms: float, d_ms: float, s: float,
     """Microsound global ADSR with curve exponent, f32[n].  Each ramp's pow
     runs on its own segment only and the segments concatenate (the A/D/R
     spans are short next to n); same per-element arithmetic as the JAX
-    package."""
+    package, the pow in f64 rounded once (``detmath.rounded``)."""
     A = max(0, int(round(sr * a_ms / 1000.0)))
     D = max(0, int(round(sr * d_ms / 1000.0)))
     R = max(0, int(round(sr * r_ms / 1000.0)))
@@ -150,19 +152,21 @@ def make_adsr(n: int, sr: int, a_ms: float, d_ms: float, s: float,
     parts = []
     if A > 0:
         ia = torch.arange(min(A, n), **f32)
-        parts.append((ia / float(A)) ** curve)
+        parts.append(detmath.rounded(torch.pow, ia / float(A), curve))
         pos = min(A, n)
     j = min(n, pos + D)
     if D > 0 and j > pos:
         idd = torch.arange(j - pos, **f32)
-        parts.append(1.0 - (1.0 - s) * (idd / float(j - pos)) ** curve)
+        parts.append(1.0 - (1.0 - s) * detmath.rounded(
+            torch.pow, idd / float(j - pos), curve))
     sus_start = j
     sus_end = max(sus_start, n - R)
     if sus_end > sus_start:
         parts.append(torch.full((sus_end - sus_start,), s, **f32))
     if R > 0 and n > sus_end:
         ir_ = torch.arange(n - sus_end, **f32)
-        r_ramp = (ir_ / float(max(1, n - 1 - sus_end))) ** curve
+        r_ramp = detmath.rounded(torch.pow,
+                                 ir_ / float(max(1, n - 1 - sus_end)), curve)
         parts.append(float(np.float32(s)) * (1.0 - r_ramp))
     if not parts:
         return torch.ones(n, **f32)

@@ -12,20 +12,28 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import exact_dft
+from . import detmath, exact_dft
 
 
 def fft_convolve_causal(x: torch.Tensor, kernel: torch.Tensor,
                         block: int = 1 << 17) -> torch.Tensor:
     """y[:len(x)] of np.convolve(x, kernel) by overlap-add partitioned FFT
-    (space.py:21).  The hop is exactly nfft/2, so each output sample gets
-    contributions from two frames: a reshape and one shifted add."""
-    x = x.to(torch.float32)
-    kernel = kernel.to(torch.float32)
+    (space.py:21), f32 [N].  The hop is exactly nfft/2, so each output
+    sample gets contributions from two frames: a reshape and one shifted
+    add.
+
+    The transforms run in f64 (the JAX package's in f32).  The soft clip
+    after this convolution multiplies its round-off by the loudness of
+    the mix: at the reference app's factory settings a dense mix peaks
+    30-40 dB above the clip, which turned f32 round-off of -128 dB into
+    -96 dBFS between the card's cuFFT and the CPU's FFT; in f64 the
+    convolution is exact to f32 on both."""
     N = x.shape[0]
     K = kernel.shape[0]
     if K == 0:
-        return torch.zeros_like(x)
+        return torch.zeros_like(x, dtype=torch.float32)
+    x = x.to(torch.float64)
+    kernel = kernel.to(torch.float64)
     nfft = 1
     while nfft < max(2 * (K - 1), min(2 * block, 2 * N, 1 << 16), 16):
         nfft *= 2
@@ -37,7 +45,7 @@ def fft_convolve_causal(x: torch.Tensor, kernel: torch.Tensor,
                                            nfft) * Kf, nfft)
     # out[b*hop : (b+1)*hop] = Y[b, :hop] + Y[b-1, hop:]
     h2 = F.pad(Y[:-1, hop:], (0, 0, 1, 0))
-    return (Y[:, :hop] + h2).reshape(-1)[:N]
+    return (Y[:, :hop] + h2).reshape(-1)[:N].to(torch.float32)
 
 
 def er_tap_kernel(taps: int, max_ms: float, sr: int, seed: int) -> np.ndarray:
@@ -105,10 +113,20 @@ def soft_clip(x: torch.Tensor, drive: float = 1.0) -> torch.Tensor:
     drive = float(drive)
     if drive <= 0:
         return x
-    return torch.tanh(x * drive) / float(np.tanh(drive))
+    return detmath.rounded(torch.tanh, x * drive) / float(np.tanh(drive))
 
 
 def normalize(x: torch.Tensor, peak: float = 0.98) -> torch.Tensor:
     """Scale to peak, up or down (space.py:139); silence stays silent."""
     m = torch.max(torch.abs(x))
     return torch.where(m <= 0, x, x * (peak / torch.clamp_min(m, 1e-30)))
+
+
+def normalize_masked(x: torch.Tensor, mask: torch.Tensor,
+                     peak: float = 0.98) -> torch.Tensor:
+    """normalize() of each row of x [..., L] with the peak taken over the
+    masked (true-length) samples only (space.py:145)."""
+    m = torch.amax(torch.abs(torch.where(mask, x, 0.0)), dim=-1,
+                   keepdim=True)
+    scale = float(np.float32(peak)) / torch.clamp_min(m, 1e-30)
+    return torch.where(m <= 0, x, x * scale)

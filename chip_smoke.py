@@ -28,7 +28,14 @@ phases; any failure raises and the exit code is non-zero.  The paths:
   Fire CA at 220 x 160 (seed 2, ignited at (110, 80)) for 480 steps through
   ``models.forestfire.ForestFireModel.simulate``, then one threshold rule
   over the stats through ``events.rules.WatchEngine.run_stream`` into an
-  OSC recorder.
+  OSC recorder;
+- Microsound, all paths: the reference app's factory settings
+  (``MicrosoundParams()``: 48 kHz, 8 s, x25 unfold, 156 events of 1 500
+  samples in 2 048) once per generator mode, the option paths at those
+  settings (warps, partial lock, resonator and waveguide, multi-band
+  unfold, feedback and imprint, breakpoint lanes), and bench config 3 at
+  full width through the whole warp chain and in stick-slip mode,
+  rendered through ``models.microsound.render``.
 
 Phases:
 
@@ -103,7 +110,21 @@ Phases:
    second against the 30 Hz tick; the step loop's device window and one
    profiler window of 10 steps (device events and busy ms per step, top
    kernels), and one of the same steps with the noise draws served from a
-   cache (``CachedDraws``): the difference is the draws' share.
+   cache (``CachedDraws``): the difference is the draws' share;
+9. Microsound, all paths: each ``grain_scan.cu`` entry point (the
+   stick-slip and micro-chaos recurrences, the waveguide's delay lines)
+   against its plain version at the factory size, bit-equal, timed warm
+   and L2 flushed beside its two bounds (bytes over the memory rate, and
+   the dependency chain: steps x dependent f32 ops x 4 cycles at the
+   card's maximum SM clock) and the plain version; the 19 renders (11
+   modes, 6 option paths, 2 at config 3's width) with every launch
+   counted (each scan kernel launched on its mode's render); each render
+   finite, loud, and within -100 dBFS of the same render on the CPU;
+   per render the wall (median of 3, PCM16, pulled), one profiler
+   window's device events and busy ms, and its launches; feedback and
+   imprint in chunks of 32 bit-equal to the whole render; the
+   ``microsound_chaos`` and ``microsound_cepstral`` golden fingerprints
+   (tests/test_goldens.py) from the card's renders.
 
 Every kernel's launch count is set to 0 just before a path is driven and
 read just after it.  A kernel is timed twice.  Warm (its ``ms``, the
@@ -148,9 +169,11 @@ SLEEP_CYCLES = 10_000_000  # ~5 ms at the H100's clock: longer than the host
 FLUSH_BYTES = 256 << 20    # read before each L2-flushed call (L2: 50 MB)
 HBM_BYTES_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOP_S = 67e12         # H100 SXM f32 rate outside the tensor cores
-KERNELS = ("overlap_add", "lerp_read")     # sources, one nvcc each
-# launch-counting wrappers: lerp_read.cu's two kernels count apart
-WRAPPERS = ("overlap_add", "lerp_read", "scrub_read")
+KERNELS = ("overlap_add", "lerp_read", "grain_scan")  # one nvcc each
+# launch-counting wrappers: lerp_read.cu's two kernels and grain_scan.cu's
+# three entry points count apart
+WRAPPERS = ("overlap_add", "lerp_read", "scrub_read", "stick_slip_scan",
+            "chaos_scan", "waveguide_scan")
 TAPE_SECONDS = 180.0   # bench config 1's tape and target length
 TAPE_FRAMES = 8745204  # its output frames after the retime
 PL_SECONDS = 8.0       # bench config 4's render length
@@ -1517,6 +1540,312 @@ def fire_path(dev, card: str, grid_run_ms: float):
               "busy time not measured", flush=True)
 
 
+# ---- phase 9: every Microsound mode and option
+
+MS_SCANS = ("stick_slip_scan", "chaos_scan", "waveguide_scan")
+MS_TIMED = 3           # timed renders per case (their median)
+MS_CHUNK = 32          # the chunked feedback / imprint render's chunk
+# dependent f32 ops a step adds to the critical path (4 cycles each on
+# Hopper), where every step reads the step before: the stick-slip force's
+# add, compare and select; the map's two multiplies
+SCAN_CHAIN_OPS = {"stick_slip_scan": 3, "chaos_scan": 2}
+SCAN_REPLACES = {
+    "stick_slip_scan": "audio_suite_tpu/ops/generators.py:188",
+    "chaos_scan": "audio_suite_tpu/ops/generators.py:214",
+    "waveguide_scan": "audio_suite_tpu/ops/generators.py:304"}
+
+
+def ms_cases():
+    """Phase 9's renders: (label, params, render kwargs).  (a) the
+    reference app's factory settings (``MicrosoundParams()``: 48 kHz, 8 s,
+    x25 unfold, micro_ms 1.25: gen_sr 1.2 MHz, n 1 500, L 2 048, 156
+    events) once per generator mode; (b) option paths at the factory
+    settings; (c) bench config 3 at full width (bench.py:348-353) through
+    the whole warp chain and in stick-slip mode."""
+    from audio_suite_torch.models import microsound as ms
+    _, ir = config3(full=True)
+    # the image-scanline mode's seeded 64 x 256 grayscale image (0-255)
+    img = np.random.default_rng(13).integers(0, 256, size=(64, 256)) \
+        .astype(np.float64)
+    fac = ms.MicrosoundParams().to_dict()
+    cases = []
+    for mode in ms.GEN_MODES:
+        kw = {"ir_audio": ir} if mode == "IR fragment" else (
+            {"img_gray": img} if mode == "Image scanline" else {})
+        cases.append((f"a:{mode}", dict(fac, gen_mode=mode), kw))
+    for label, ch in [
+            ("b:warps", dict(nl_warp_on=True, cep_warp_on=True)),
+            ("b:partial lock", dict(partial_lock_on=True,
+                                    partial_stretch=2.0)),
+            ("b:resonator+waveguide", dict(res_bank_on=True, wg_on=True)),
+            ("b:multiband", dict(unfold_mode="Multi-band unfold")),
+            ("b:feedback+imprint", dict(event_feedback_on=True,
+                                        spectral_imprint_on=True)),
+            ("b:bp lanes", dict(bp_unfold="0:20, 8:30",
+                                bp_stretch="0:0.8, 8:1.6")),
+            # the padded-length chain through the cepstral warp, which
+            # reads the phase of FFT round-off (ROADMAP.md section 3)
+            ("b:bp lanes+cepstral", dict(bp_unfold="0:20, 8:30",
+                                         bp_stretch="0:0.8, 8:1.6",
+                                         cep_warp_on=True))]:
+        cases.append((label, dict(fac, **ch), {}))
+    p3, _ = config3(full=True)
+    c3 = p3.to_dict()
+    cases.append(("c:config3 warp chain", dict(
+        c3, nl_warp_on=True, cep_warp_on=True, partial_lock_on=True),
+        {"ir_audio": ir}))
+    cases.append(("c:config3 stick-slip", dict(
+        c3, gen_mode="Stick–slip friction"), {"ir_audio": ir}))
+    return cases
+
+
+def resonator_inputs(p, kw: dict, dev) -> torch.Tensor:
+    """The grains that enter the resonator bank, whose sign(x) gate moves
+    the output by up to 0.9 of the bank where a sample crosses 0, in one
+    render of ``p`` on ``dev`` (on the host)."""
+    from audio_suite_torch.models import microsound as ms
+    from audio_suite_torch.ops import generators
+    seen = []
+    bank = generators.resonator_bank
+
+    def spy(x, *args, **kwargs):
+        seen.append(x.cpu())
+        return bank(x, *args, **kwargs)
+
+    generators.resonator_bank = spy
+    try:
+        ms.render(p, device=dev, **kw)
+    finally:
+        generators.resonator_bank = bank
+    return torch.cat(seen)
+
+
+def dbfs(a: torch.Tensor, b: torch.Tensor) -> float:
+    return 20 * float(np.log10(max((a.cpu().double() - b.cpu().double())
+                                   .abs().max().item(), 1e-300)))
+
+
+def scan_inputs(dev):
+    """The grain_scan kernels' inputs at the factory size, as the render
+    draws them: the stick-slip noise rows and micro-chaos gates of the
+    factory program's one chunk (E 160 with padding, L 2 048), and the
+    waveguide's delays, gains and mixes of the factory program with the
+    waveguide on, over seeded grains."""
+    from audio_suite_torch.models import microsound as ms
+    from audio_suite_torch.ops import generators, noise
+    p = ms.MicrosoundParams(wg_on=True)
+    prog = ms.build_program(p)
+    (ch,) = ms._chunk_events(prog, ms._event_chunk(prog["E"], prog["L"]))
+    ev = ms.program_to_device(ch, dev)
+    i = torch.arange(prog["L"], device=dev)
+    seed = ev["seed"][:, None]
+    rng = np.random.default_rng(17)
+    x = torch.tensor(rng.standard_normal(
+        (len(ch["n"]), prog["L"])).astype(np.float32), device=dev)
+    return {
+        "stick_slip_scan": (noise.normal(seed, i, generators.STREAM_BUILD),
+                            noise.normal(seed, i, generators.STREAM_OUT),
+                            0.9, 0.06, 0.75, 0.08),
+        "chaos_scan": (noise.uniform(seed, i, generators.STREAM_GATE),
+                       generators.chaos_y0(ev["seed"]), 3.92, 0.35),
+        "waveguide_scan": (x, ev["wg_d"], ev["wg_g"], ev["wg_m"],
+                           prog["wg_dmax"])}
+
+
+def chain_ops(name: str, args) -> int:
+    """The longest chain of dependent f32 ops in one event's recurrence,
+    from this run's inputs.  Stick-slip and micro-chaos: every step reads
+    the one before, L steps.  The waveguide: v(t) = y(t) + g v(t - d)
+    reads the step d before (a multiply and an add), so one line's chain
+    has floor((L - 1) / d) links, and line l + 1 at step t reads line l at
+    step t (an add, a multiply and an add), so the lines pipeline: 3 ops
+    a line plus 2 a link on the event's smallest d, the longest over the
+    real events (a padding event's d is 0 and its row is discarded)."""
+    if name != "waveguide_scan":
+        return args[0].shape[1] * SCAN_CHAIN_OPS[name]
+    L = args[0].shape[1]
+    d = args[1].to(torch.int64)
+    real = (d > 0).all(dim=1)
+    links = (L - 1) // d[real].amin(dim=1)
+    return 3 * d.shape[1] + 2 * int(links.max())
+
+
+def scan_rows(dev, card: str) -> dict:
+    """Each grain_scan entry point against its plain version at the
+    factory size (bit-equal), timed warm and L2 flushed, with its two
+    bounds: bytes over the memory rate, and the dependency chain
+    (``chain_ops`` x 4 cycles at the card's maximum SM clock)."""
+    from audio_suite_torch import kernels
+    from audio_suite_torch.ops import generators
+    sm_mhz = float(smi("clocks.max.sm").split()[0])
+    rows = {}
+    for name, args in scan_inputs(dev).items():
+        kern = getattr(kernels, name)
+        plain = getattr(generators, name + "_plain")
+        x = args[0]
+        E, L = x.shape
+        lines = args[1].shape[1] if name == "waveguide_scan" else 1
+        kargs = args
+        pargs = args[:-1] if name == "waveguide_scan" else args
+        got = kern(*kargs)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        want = plain(*pargs)
+        b.record()
+        torch.cuda.synchronize()
+        plain_ms = a.elapsed_time(b)
+        err = (got - want).abs().max().item()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name} kernel differs from its plain "
+                                 f"version: max |err| {err}")
+        ms_warm = kernel_ms(lambda: kern(*kargs), TIMED_KERNEL_RUNS,
+                            KERNEL_LAUNCHES)
+        ms_cold = flushed_ms(lambda: kern(*kargs), KERNEL_LAUNCHES)
+        nbytes = 4 * (sum(t.numel() for t in args
+                          if isinstance(t, torch.Tensor)) + got.numel())
+        flops = {"stick_slip_scan": 9, "chaos_scan": 4,
+                 "waveguide_scan": 5}[name] * E * L * lines
+        bound, bound_by = bound_ms(nbytes, flops)
+        ops = chain_ops(name, args)
+        chain_ms = ops * 4 / (sm_mhz * 1e3)
+        governs = max(bound, chain_ms)
+        print(f"{name}: E {E} L {L} lines {lines}: bit-equal to plain; "
+              f"warm {ms_warm:.4f} ms, L2 flushed {ms_cold:.4f} ms; bound "
+              f"by {bound_by} {bound:.4f} ms ({nbytes / 1e6:.2f} MB), "
+              f"dependency chain {chain_ms:.4f} ms ({ops} dependent ops x 4 "
+              f"cycles at {sm_mhz:.0f} MHz); the "
+              f"{'chain' if chain_ms > bound else bound_by} governs, warm "
+              f"at {governs / ms_warm:.2%} of it; plain {plain_ms:.2f} ms "
+              f"{card}", flush=True)
+        rows[name] = {
+            "name": name, "route": "cuda",
+            "source": "audio_suite_torch/kernels/grain_scan.cu",
+            "replaces": SCAN_REPLACES[name] + " (lax.scan; no Pallas "
+                        "kernel)",
+            "max_abs_err": err, "ms": ms_warm, "ms_l2_flushed": ms_cold,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "chain_bound_ms": chain_ms, "library_ms": None,
+            "shape": {"E": E, "L": L, "lines": lines}}
+    return rows
+
+
+def microsound_all_path(dev, card: str):
+    """Phase 9: every Microsound mode and option; returns (the grain_scan
+    rows, the phase's overlap-add launches)."""
+    from audio_suite_torch.models import microsound as ms
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import test_goldens as tg
+
+    rows = scan_rows(dev, card)
+
+    # the main path, every launch counted: each case once on the card
+    cases = ms_cases()
+    reset_counts()
+    outs, per_case = {}, {}
+    for label, d, kw in cases:
+        before = read_counts()
+        y, meta = ms.render(ms.MicrosoundParams.from_dict(d), device=dev,
+                            **kw)
+        torch.cuda.synchronize()
+        after = read_counts()
+        if not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"{label}: non-finite samples")
+        if y.shape[1] != 2 or float(y.abs().max()) < 0.5:
+            raise AssertionError(f"{label}: render {tuple(y.shape)} peak "
+                                 f"{float(y.abs().max())}")
+        outs[label] = y
+        per_case[label] = ({k: after[k] - before[k] for k in WRAPPERS},
+                           meta["events"])
+    launches = read_counts()
+    for name, label in (("stick_slip_scan", "a:Stick–slip friction"),
+                        ("chaos_scan", "a:Micro-chaos"),
+                        ("waveguide_scan", "b:resonator+waveguide")):
+        if per_case[label][0][name] < 1:
+            raise AssertionError(f"{label} did not launch {name}")
+        rows[name]["launches"] = launches[name]
+    if launches["overlap_add"] < len(cases):
+        raise AssertionError("a render did not launch the overlap_add "
+                             "kernel")
+
+    # each render against the port's CPU render, then timing
+    for label, d, kw in cases:
+        p = ms.MicrosoundParams.from_dict(d)
+        cpu, _ = ms.render(p, device="cpu", **kw)
+        db = dbfs(outs[label], cpu)
+        stage = ""
+        if p.res_bank_on:
+            # the card's and the CPU's renders agree only where the
+            # resonator's input grains do, sign for sign
+            xc, xh = (resonator_inputs(p, kw, at) for at in (dev, "cpu"))
+            stage = (f"; resonator input grains: {int((xc != xh).sum())} "
+                     f"of {xc.numel()} samples differ, "
+                     f"{int((torch.sign(xc) != torch.sign(xh)).sum())} "
+                     f"across 0")
+        if db > -100.0:
+            raise AssertionError(f"{label}: card {db:.2f} dBFS from the "
+                                 f"CPU{stage}")
+        walls = []
+        for _ in range(MS_TIMED):
+            t0 = time.perf_counter()
+            y16, _ = ms.render(p, device=dev, pcm16=True, **kw)
+            y16.cpu()
+            walls.append(time.perf_counter() - t0)
+        prof = profile_renders(lambda: ms.render(p, device=dev, **kw), 1)
+        counts, events = per_case[label]
+        wall = statistics.median(walls) * 1e3
+        print(f"microsound {label}: {events} events, card vs CPU "
+              f"{db:.2f} dBFS{stage}; wall median {wall:.2f} ms of "
+              f"{MS_TIMED} (PCM16, pulled); "
+              + (f"{prof['events_per_render']:.0f} device events, "
+                 f"{prof['busy_ms_per_render']:.3f} ms busy; "
+                 if prof else "profile: no device event; ")
+              + f"launches {counts} {card}", flush=True)
+        for name, t, c in (prof["top"][:3] if prof else []):
+            print(f"profile:   {t:.3f} ms {c:.0f}x {name}", flush=True)
+
+    # feedback and imprint: chunked bit-equal to whole on the card
+    p = ms.MicrosoundParams.from_dict(dict(cases[0][1],
+                                           event_feedback_on=True,
+                                           spectral_imprint_on=True))
+    whole, meta = ms.render(p, device=dev)
+    chunked, _ = ms.render(p, device=dev, event_chunk=MS_CHUNK)
+    if not torch.equal(whole, chunked):
+        raise AssertionError(f"feedback + imprint at event_chunk "
+                             f"{MS_CHUNK} is {dbfs(whole, chunked):.2f} "
+                             f"dBFS from the whole render on the card")
+    print(f"check: feedback + imprint in chunks of {MS_CHUNK} "
+          f"({-(-meta['events'] // MS_CHUNK)} chunks) bit-equal to whole",
+          flush=True)
+
+    # the two goldens on the card
+    with open(tg.GOLDEN_PATH) as f:
+        goldens = json.load(f)
+    for key, d in MS_GOLDENS.items():
+        y, _ = ms.render(ms.MicrosoundParams.from_dict(d), device=dev)
+        tg._compare(key, tg._fingerprint(y.cpu().numpy()), goldens[key])
+        print(f"check: golden {key} passes on the card", flush=True)
+    return list(rows.values()), launches["overlap_add"]
+
+
+# tests/test_goldens.py:203-229 (SR 8000)
+MS_GOLDENS = {
+    "microsound_chaos": dict(
+        base_sr=8000, out_dur_s=0.4, time_unfold=3.0, micro_ms=8.0,
+        gen_mode="Micro-chaos", chaos_r=3.92, chaos_gate=0.35,
+        grains_per_sec=15.0, max_grains=12, nl_warp_on=True,
+        nl_warp_power=1.25, bandlimit_on=True, bandlimit_out_hz=3000.0,
+        bandlimit_roll_hz=500.0, seed=41, er_cloud_on=False, bp_density="",
+        bp_unfold="", bp_cutoff="", bp_stretch=""),
+    "microsound_cepstral": dict(
+        base_sr=8000, out_dur_s=0.4, time_unfold=2.5, micro_ms=6.0,
+        gen_mode="Crackle / corona", crackle_density=150.0, cep_warp_on=True,
+        cep_factor=1.2, grains_per_sec=20.0, max_grains=12, stereo_on=True,
+        stereo_width=0.65, seed=17, er_cloud_on=False, bp_density="",
+        bp_unfold="", bp_cutoff="", bp_stretch=""),
+}
+
+
 def main() -> int:
     # ---- 1. probe
     if not torch.cuda.is_available():
@@ -1553,11 +1882,13 @@ def main() -> int:
     sr_row = scrub_path(dev, card)
     grid = grid_path(dev, card)
     fire_path(dev, card, grid["run_wall_ms"])
+    scan_rows_, ms_oa = microsound_all_path(dev, card)
     oa_row["launches_by_path"] = {"microsound": oa_row["launches"],
-                                  "patternlab": pl_oa["launches"]}
-    oa_row["launches"] += pl_oa["launches"]
+                                  "patternlab": pl_oa["launches"],
+                                  "microsound_all_paths": ms_oa}
+    oa_row["launches"] += pl_oa["launches"] + ms_oa
     oa_row["config4"] = pl_oa
-    rows = [oa_row, lr_row, sr_row]
+    rows = [oa_row, lr_row, sr_row] + scan_rows_
 
     print(json.dumps({"kernels": rows}))
     print(name_limit)

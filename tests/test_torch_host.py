@@ -12,8 +12,8 @@ of the JAX package:
 - ``plugins.host``: the same arity errors as the JAX package's, and its
   own path-keyed module cache;
 - a static walk of ``audio_suite_torch/**/*.py`` (``plugins/`` included),
-  ``chip_smoke.py`` and the A/B scripts ``oa_ab.py`` and ``read_ab.py``
-  finds no import of ``audio_suite_tpu`` or ``jax``;
+  ``chip_smoke.py`` and the A/B scripts ``oa_ab.py``, ``read_ab.py`` and
+  ``f64_ab.py`` finds no import of ``audio_suite_tpu`` or ``jax``;
 - every entry point defaults to ``device="cuda"``;
 - the scrub's increments and Microsound's noise draws are the same with
   Python int seeds and streams kept on the host as they were when every
@@ -296,7 +296,8 @@ def _port_sources():
                                           "*.py"), recursive=True))
     return files + [os.path.join(REPO, f) for f in ("chip_smoke.py",
                                                      "oa_ab.py",
-                                                     "read_ab.py")]
+                                                     "read_ab.py",
+                                                     "f64_ab.py")]
 
 
 def test_import_walk_covers_every_subpackage():

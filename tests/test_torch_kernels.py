@@ -507,3 +507,96 @@ def test_patternlab_smoke_render_on_cuda_matches_cpu(cuda):
     assert kernels.overlap_add.launches == n0 + len(prep.spec)
     dev = np.abs(got.astype(np.float64) - want).max()
     assert 20 * np.log10(max(dev, 1e-300)) <= -100.0
+
+
+# ---------------------------------------------------------------- grain_scan
+
+def _scan_noise(E, L, seed0=12345):
+    """Each event's stick-slip noise rows and micro-chaos gates, as the
+    generators draw them (seeds seed0 + e)."""
+    from audio_suite_torch.ops import generators, noise
+    seeds = torch.arange(seed0, seed0 + E, dtype=torch.int32)[:, None]
+    i = torch.arange(L)
+    return (noise.normal(seeds, i, generators.STREAM_BUILD),
+            noise.normal(seeds, i, generators.STREAM_OUT),
+            noise.uniform(seeds, i, generators.STREAM_GATE),
+            generators.chaos_y0(seeds[:, 0]))
+
+
+@pytest.mark.parametrize("E,L", [(156, 2048), (37, 1000), (1, 130),
+                                 (288, 4096)])
+def test_stick_slip_and_chaos_kernels_bit_equal_to_plain(cuda, E, L):
+    """The factory sizes (156 events of 2 048), a ragged warp and tile,
+    one event, and a config-3 event count."""
+    from audio_suite_torch.ops import generators
+    bn, on, gates, y0 = _scan_noise(E, L)
+    args = (0.9, 0.06, 0.75, 0.08)
+    want = generators.stick_slip_scan_plain(bn, on, *args)
+    n0 = kernels.stick_slip_scan.launches
+    got = generators.stick_slip_scan(bn.to(cuda), on.to(cuda), *args)
+    torch.cuda.synchronize()
+    assert kernels.stick_slip_scan.launches == n0 + 1
+    assert torch.count_nonzero(want) > 0
+    assert torch.equal(got.cpu(), want)
+    want = generators.chaos_scan_plain(gates, y0, 3.92, 0.35)
+    n0 = kernels.chaos_scan.launches
+    got = generators.chaos_scan(gates.to(cuda), y0.to(cuda), 3.92, 0.35)
+    torch.cuda.synchronize()
+    assert kernels.chaos_scan.launches == n0 + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("E,L,lines,dlo,dhi", [
+    (156, 2048, 8, 480, 9600),     # the factory delays: most past L
+    (40, 500, 3, 0, 12),           # short delays, d 0 and 1 among them
+    (33, 300, 2, 250, 350),        # around L
+])
+def test_waveguide_kernel_bit_equal_to_plain(cuda, E, L, lines, dlo, dhi):
+    from audio_suite_torch.ops import generators
+    rng = np.random.default_rng(E + L)
+    x = torch.tensor(rng.standard_normal((E, L)).astype(np.float32))
+    d = torch.tensor(rng.integers(dlo, dhi + 1, (E, lines)).astype(np.int32))
+    g = torch.tensor((0.7 * rng.uniform(0.6, 0.98, (E, lines)))
+                     .astype(np.float32))
+    m = torch.tensor(rng.uniform(0.15, 0.45, (E, lines)).astype(np.float32))
+    g[-1] = 0.0                                   # a padding event's row
+    d[-1] = 0
+    want = generators.waveguide_scan_plain(x, d, g, m)
+    n0 = kernels.waveguide_scan.launches
+    got = generators.waveguide_scan(x.to(cuda), d.to(cuda), g.to(cuda),
+                                    m.to(cuda), int(d.max()))
+    torch.cuda.synchronize()
+    assert kernels.waveguide_scan.launches == n0 + 1
+    assert torch.equal(got.cpu(), want)
+
+
+def test_grain_scan_kernels_reject_what_they_do_not_take(cuda):
+    bn, on, gates, y0 = _scan_noise(4, 64)
+    with pytest.raises(ValueError):
+        kernels.stick_slip_scan(bn.to(cuda), on, 0.9, 0.06, 0.75, 0.08)
+    with pytest.raises(TypeError):
+        kernels.chaos_scan(gates.to(cuda).double(), y0.to(cuda), 3.9, 0.3)
+    with pytest.raises(ValueError):
+        kernels.chaos_scan(gates.to(cuda), y0[:3].to(cuda), 3.9, 0.3)
+    with pytest.raises(TypeError):
+        kernels.waveguide_scan(bn.to(cuda), torch.ones(4, 2, device=cuda),
+                               torch.ones(4, 2, device=cuda),
+                               torch.ones(4, 2, device=cuda), 3)
+
+
+@pytest.mark.parametrize("mode", ["Stick–slip friction", "Micro-chaos"])
+def test_scan_mode_renders_on_cuda_match_cpu(cuda, mode):
+    """Factory settings but 1 s, with the waveguide on: every grain_scan
+    entry point launches once per chunk."""
+    p = ms.MicrosoundParams.from_dict(dict(gen_mode=mode, out_dur_s=1.0,
+                                           wg_on=True))
+    want, _ = ms.render(p, device="cpu")
+    n0 = {k: getattr(kernels, k).launches
+          for k in ("stick_slip_scan", "chaos_scan", "waveguide_scan")}
+    got, meta = ms.render(p, device=cuda)
+    torch.cuda.synchronize()
+    scan = "stick_slip_scan" if mode.startswith("Stick") else "chaos_scan"
+    assert getattr(kernels, scan).launches == n0[scan] + 1
+    assert kernels.waveguide_scan.launches == n0["waveguide_scan"] + 1
+    dev = (got.cpu().double() - want.double()).abs().max().item()
+    assert 20 * np.log10(max(dev, 1e-300)) <= -100.0
