@@ -88,8 +88,8 @@ _SIGNATURES = {
                            ctypes.c_float, _P], ctypes.c_int),
         "gs_chaos": ([_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                       ctypes.c_float, _P], ctypes.c_int),
-        "gs_waveguide": ([_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_int, _P], ctypes.c_int),
+        "gs_waveguide": ([_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, _P], ctypes.c_int),
         "gs_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
 }
@@ -322,12 +322,11 @@ chaos_scan.launches = 0
 
 
 def waveguide_scan(x: torch.Tensor, d: torch.Tensor, g: torch.Tensor,
-                   mix: torch.Tensor, dmax: int) -> torch.Tensor:
+                   mix: torch.Tensor) -> torch.Tensor:
     """Launch ``grain_scan.cu``'s waveguide delay lines on the current
     stream and return the new y f32 [E, L] from x f32 [E, L], the delays
-    d i32 [E, lines], the gains g and the mixes f32 [E, lines].  ``dmax``
-    is at least every d (the program's ``wg_dmax``): each event's ring
-    takes min(dmax, L) floats of scratch."""
+    d i32 [E, lines], the gains g and the mixes f32 [E, lines]: one block
+    per event, its row in shared memory where it fits."""
     E, L = x.shape
     lines = d.shape[1] if d.dim() == 2 else -1
     _scan_check("waveguide", (x, d, g, mix),
@@ -335,11 +334,8 @@ def waveguide_scan(x: torch.Tensor, d: torch.Tensor, g: torch.Tensor,
                 ((E, L), (E, lines), (E, lines), (E, lines)))
     y = torch.empty_like(x)
     if E and L and lines > 0:
-        cap = max(1, min(int(dmax), L))
-        ring = torch.empty(E * cap, dtype=torch.float32, device=x.device)
         _gs_run("gs_waveguide", x.device, x.data_ptr(), d.data_ptr(),
-                g.data_ptr(), mix.data_ptr(), y.data_ptr(), ring.data_ptr(),
-                E, L, lines, cap)
+                g.data_ptr(), mix.data_ptr(), y.data_ptr(), E, L, lines)
         waveguide_scan.launches += 1
     else:
         y.copy_(x)

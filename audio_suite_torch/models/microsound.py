@@ -580,7 +580,8 @@ def _event_chunk(E: int, L: int) -> int:
 def _chunk_events(prog: dict, ec: int) -> list[dict]:
     """Split the per-event arrays into chunks of ec events (microsound.py:
     955, without the TPU ring plan).  Padding events (amp 0, start at the
-    end of the render, n 16, zero aux rows) fill the last chunk and add
+    end of the render, n 16, zero aux rows but a waveguide delay of L:
+    one link a column, the kernel's cheapest) fill the last chunk and add
     only zeros.  Each chunk carries ``oa_start = L + start - offset``, its
     windows' starts in the margin-layout buffer — NOT sorted: offsets
     reach back past earlier events."""
@@ -596,8 +597,8 @@ def _chunk_events(prog: dict, ec: int) -> list[dict]:
             a = prog[k][s:e]
             if e - s < ec:
                 pad = [(0, ec - (e - s))] + [(0, 0)] * (a.ndim - 1)
-                fill = prog["out_n"] if k == "start" else (
-                    16 if k == "n" else 0)
+                fill = {"start": prog["out_n"], "n": 16,
+                        "wg_d": L}.get(k, 0)
                 a = np.pad(a, pad, constant_values=fill)
                 if k == "gen_sr":
                     a[e - s:] = 48000.0

@@ -310,8 +310,8 @@ def waveguide_scan_plain(x: torch.Tensor, d: torch.Tensor, g: torch.Tensor,
     """The waveguide's feedback delay lines (generators.py:308-322), in
     line order, each from a zeroed ring buffer, for every event at once:
     x f32 [E, L], d int [E, lines], g and mix f32 [E, lines] -> y [E, L].
-    The write pointer wraps at d (a d of 0, a padding event's, acts as
-    1), so it stays below min(d, L)."""
+    The write pointer wraps at d (a d of 0 acts as 1), so it stays below
+    min(d, L)."""
     E, L = x.shape
     rows = torch.arange(E, device=x.device)
     y = x
@@ -349,13 +349,12 @@ def chaos_scan(gates, y0, r, gate):
     return kernels.chaos_scan(gates, y0, _f32(r), _f32(gate))
 
 
-def waveguide_scan(x, d, g, mix, dmax: int):
+def waveguide_scan(x, d, g, mix):
     """``waveguide_scan_plain`` for CPU tensors; on the card the
-    ``grain_scan.cu`` kernel with a ring of min(dmax, L) floats per event
-    (``dmax`` at least every d: the program's ``wg_dmax``)."""
+    ``grain_scan.cu`` kernel."""
     if x.device.type == "cpu":
         return waveguide_scan_plain(x, d, g, mix)
-    return kernels.waveguide_scan(x, d, g, mix, int(dmax))
+    return kernels.waveguide_scan(x, d, g, mix)
 
 
 # ---------------------------------------------------------------------------
@@ -474,9 +473,10 @@ def resonator_bank(x: torch.Tensor, i: torch.Tensor, n: torch.Tensor,
 def waveguide_splinters(x: torch.Tensor, n: torch.Tensor, delays, gains,
                         mixes, lines: int, dmax: int) -> torch.Tensor:
     """N feedback delay lines (generators.py:304) through
-    ``waveguide_scan``; zero beyond n."""
+    ``waveguide_scan``; zero beyond n.  ``dmax`` mirrors the JAX
+    signature, where it sizes the ring: here no ring is kept."""
     y = waveguide_scan(x, delays[:, :lines].contiguous(),
                        gains[:, :lines].contiguous(),
-                       mixes[:, :lines].contiguous(), dmax)
+                       mixes[:, :lines].contiguous())
     return torch.where(torch.arange(x.shape[1], device=x.device)
                        < _col(n.to(torch.int64)), y, 0.0)

@@ -2,6 +2,12 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --scan-ab path/to/grain_scan.cu
+
+The second form builds the kernels, then only holds another grain_scan.cu
+(e.g. an earlier commit's, from ``git archive`` into the git-ignored
+``_local/``) against the port's at phase 9's two shapes and times the two
+in turns (``scan_ab``).
 
 Drives audio_suite_torch's ported paths at full size on the card, in
 phases; any failure raises and the exit code is non-zero.  The paths:
@@ -113,13 +119,16 @@ Phases:
    cache (``CachedDraws``): the difference is the draws' share;
 9. Microsound, all paths: each ``grain_scan.cu`` entry point (the
    stick-slip and micro-chaos recurrences, the waveguide's delay lines)
-   against its plain version at the factory size, bit-equal, timed warm
-   and L2 flushed beside its two bounds (bytes over the memory rate, and
-   the dependency chain: steps x dependent f32 ops x 4 cycles at the
-   card's maximum SM clock) and the plain version; the 19 renders (11
-   modes, 6 option paths, 2 at config 3's width) with every launch
-   counted (each scan kernel launched on its mode's render); each render
-   finite, loud, and within -100 dBFS of the same render on the CPU;
+   against its plain version at the factory size (E 160, L 2 048) and at
+   config 3's width (E 288, L 32 768; the waveguide held at its first
+   line there, the plain loop being ~100 us of host time a step),
+   bit-equal, timed warm and L2 flushed beside its two bounds (bytes over
+   the memory rate, and the dependency chain: steps x dependent f32 ops x
+   4 cycles at the card's maximum SM clock) and the plain version; the
+   20 renders (11 modes, 7 option paths, 2 at config 3's width) with
+   every launch counted (each scan kernel launched on its mode's
+   render); each render finite, loud, and within -100 dBFS of the same
+   render on the CPU;
    per render the wall (median of 3, PCM16, pulled), one profiler
    window's device events and busy ms, and its launches; feedback and
    imprint in chunks of 32 bit-equal to the whole render; the
@@ -518,16 +527,20 @@ def build_ab(name: str, src: str):
     return ctypes.CDLL(so), ptxas_summary(so)
 
 
-def in_turns(fns: dict, rounds: int, bound: float) -> dict:
+def in_turns(fns: dict, rounds: int, bound: float, runs: int = None,
+             launches: int = None) -> dict:
     """For the A/B scripts: each fn() of ``fns`` timed warm (``kernel_ms``)
-    and L2 flushed (``flushed_ms``) in turns, A B .. B A, ``rounds`` times;
-    label -> the medians, their shares of the ``bound`` (ms) and the times
-    in turns."""
+    and L2 flushed (``flushed_ms``) in turns, A B .. B A, ``rounds`` times
+    (``runs`` and ``launches`` default to TIMED_KERNEL_RUNS and
+    KERNEL_LAUNCHES); label -> the medians, their shares of the ``bound``
+    (ms) and the times in turns."""
+    runs = runs or TIMED_KERNEL_RUNS
+    launches = launches or KERNEL_LAUNCHES
     warm = {k: [] for k in fns}
     cold = {k: [] for k in fns}
     for k in (list(fns) + list(fns)[::-1]) * rounds:
-        warm[k].append(kernel_ms(fns[k], TIMED_KERNEL_RUNS, KERNEL_LAUNCHES))
-        cold[k].append(flushed_ms(fns[k], KERNEL_LAUNCHES))
+        warm[k].append(kernel_ms(fns[k], runs, launches))
+        cold[k].append(flushed_ms(fns[k], launches))
     rows = {}
     for k in fns:
         w, c = statistics.median(warm[k]), statistics.median(cold[k])
@@ -1549,6 +1562,11 @@ MS_CHUNK = 32          # the chunked feedback / imprint render's chunk
 # Hopper), where every step reads the step before: the stick-slip force's
 # add, compare and select; the map's two multiplies
 SCAN_CHAIN_OPS = {"stick_slip_scan": 3, "chaos_scan": 2}
+SCAN_WIDTHS = ("factory", "config3")   # the shapes of ``scan_inputs``
+SCAN_C3_PLAIN_LINES = 1   # waveguide lines held against the plain loop at
+#                           config 3's width (~6 s of host time a line)
+SCAN_AB_SLOW_MS = 5.0     # scan A/B: a call slower than this is timed in
+#                           runs of 5 launches
 SCAN_REPLACES = {
     "stick_slip_scan": "audio_suite_tpu/ops/generators.py:188",
     "chaos_scan": "audio_suite_tpu/ops/generators.py:214",
@@ -1625,16 +1643,23 @@ def dbfs(a: torch.Tensor, b: torch.Tensor) -> float:
                                    .abs().max().item(), 1e-300)))
 
 
-def scan_inputs(dev):
-    """The grain_scan kernels' inputs at the factory size, as the render
-    draws them: the stick-slip noise rows and micro-chaos gates of the
-    factory program's one chunk (E 160 with padding, L 2 048), and the
-    waveguide's delays, gains and mixes of the factory program with the
-    waveguide on, over seeded grains."""
+def scan_inputs(dev, width: str):
+    """The grain_scan kernels' inputs as the render draws them, and the
+    chunk's real event count (the rest are padding).  ``width`` "factory":
+    the factory program with the waveguide on (its one chunk: E 160 with
+    padding, L 2 048); "config3": bench config 3 in stick-slip mode with
+    the waveguide on (its one chunk: E 288, L 32 768).  The stick-slip
+    noise rows and micro-chaos gates of the chunk's seeds, and the
+    waveguide's delays, gains and mixes over seeded grains."""
     from audio_suite_torch.models import microsound as ms
     from audio_suite_torch.ops import generators, noise
-    p = ms.MicrosoundParams(wg_on=True)
-    prog = ms.build_program(p)
+    if width == "factory":
+        d = ms.MicrosoundParams().to_dict()
+    else:
+        p3, _ = config3(full=True)
+        d = dict(p3.to_dict(), gen_mode="Stick–slip friction")
+    prog = ms.build_program(ms.MicrosoundParams.from_dict(dict(d,
+                                                               wg_on=True)))
     (ch,) = ms._chunk_events(prog, ms._event_chunk(prog["E"], prog["L"]))
     ev = ms.program_to_device(ch, dev)
     i = torch.arange(prog["L"], device=dev)
@@ -1648,11 +1673,11 @@ def scan_inputs(dev):
                             0.9, 0.06, 0.75, 0.08),
         "chaos_scan": (noise.uniform(seed, i, generators.STREAM_GATE),
                        generators.chaos_y0(ev["seed"]), 3.92, 0.35),
-        "waveguide_scan": (x, ev["wg_d"], ev["wg_g"], ev["wg_m"],
-                           prog["wg_dmax"])}
+        "waveguide_scan": (x, ev["wg_d"], ev["wg_g"], ev["wg_m"])}, \
+        prog["E"]
 
 
-def chain_ops(name: str, args) -> int:
+def chain_ops(name: str, args, real: int) -> int:
     """The longest chain of dependent f32 ops in one event's recurrence,
     from this run's inputs.  Stick-slip and micro-chaos: every step reads
     the one before, L steps.  The waveguide: v(t) = y(t) + g v(t - d)
@@ -1660,73 +1685,181 @@ def chain_ops(name: str, args) -> int:
     has floor((L - 1) / d) links, and line l + 1 at step t reads line l at
     step t (an add, a multiply and an add), so the lines pipeline: 3 ops
     a line plus 2 a link on the event's smallest d, the longest over the
-    real events (a padding event's d is 0 and its row is discarded)."""
+    chunk's ``real`` events (the padding events' rows are discarded)."""
     if name != "waveguide_scan":
         return args[0].shape[1] * SCAN_CHAIN_OPS[name]
     L = args[0].shape[1]
-    d = args[1].to(torch.int64)
-    real = (d > 0).all(dim=1)
-    links = (L - 1) // d[real].amin(dim=1)
+    d = args[1][:real].to(torch.int64).clamp_min(1)
+    links = (L - 1) // d.amin(dim=1)
     return 3 * d.shape[1] + 2 * int(links.max())
 
 
+def scan_bounds(name: str, args, real: int, sm_mhz: float) -> dict:
+    """A grain_scan call's bounds from its inputs: bytes (each input read
+    once, the output written once) over the memory rate, its f32 ops over
+    the f32 rate, and its dependency chain (``chain_ops`` x 4 cycles at
+    the card's maximum SM clock)."""
+    E, L = args[0].shape
+    lines = args[1].shape[1] if name == "waveguide_scan" else 1
+    nbytes = 4 * (sum(t.numel() for t in args
+                      if isinstance(t, torch.Tensor)) + E * L)
+    flops = {"stick_slip_scan": 9, "chaos_scan": 4,
+             "waveguide_scan": 5}[name] * E * L * lines
+    bound, bound_by = bound_ms(nbytes, flops)
+    ops = chain_ops(name, args, real)
+    return {"E": E, "L": L, "lines": lines, "nbytes": nbytes,
+            "bound_ms": bound, "bound_by": bound_by, "chain_ops": ops,
+            "chain_bound_ms": ops * 4 / (sm_mhz * 1e3)}
+
+
 def scan_rows(dev, card: str) -> dict:
-    """Each grain_scan entry point against its plain version at the
-    factory size (bit-equal), timed warm and L2 flushed, with its two
-    bounds: bytes over the memory rate, and the dependency chain
-    (``chain_ops`` x 4 cycles at the card's maximum SM clock)."""
+    """Each grain_scan entry point against its plain version, bit-equal,
+    timed warm and L2 flushed, with its bounds (``scan_bounds``), at the
+    factory size and at config 3's width (``scan_inputs``).  At config 3's
+    width the waveguide is held against its plain loop at its first
+    SCAN_C3_PLAIN_LINES lines (the loop takes ~100 us of host time a step)
+    and timed at all of them."""
     from audio_suite_torch import kernels
     from audio_suite_torch.ops import generators
     sm_mhz = float(smi("clocks.max.sm").split()[0])
     rows = {}
-    for name, args in scan_inputs(dev).items():
-        kern = getattr(kernels, name)
-        plain = getattr(generators, name + "_plain")
+    for width in SCAN_WIDTHS:
+        inputs, real = scan_inputs(dev, width)
+        for name, args in inputs.items():
+            kern = getattr(kernels, name)
+            plain = getattr(generators, name + "_plain")
+            cargs = args
+            if name == "waveguide_scan" and width == "config3":
+                cargs = (args[0],) + tuple(
+                    t[:, :SCAN_C3_PLAIN_LINES].contiguous() for t in args[1:])
+            got = kern(*cargs)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            want = plain(*cargs)
+            b.record()
+            torch.cuda.synchronize()
+            plain_ms = a.elapsed_time(b)
+            err = (got - want).abs().max().item()
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name} kernel differs from its plain "
+                                     f"version at the {width} shape: max "
+                                     f"|err| {err}")
+            ms_warm = kernel_ms(lambda: kern(*args), TIMED_KERNEL_RUNS,
+                                KERNEL_LAUNCHES)
+            ms_cold = flushed_ms(lambda: kern(*args), KERNEL_LAUNCHES)
+            bd = scan_bounds(name, args, real, sm_mhz)
+            governs = max(bd["bound_ms"], bd["chain_bound_ms"])
+            gov_by = "chain" if bd["chain_bound_ms"] > bd["bound_ms"] \
+                else bd["bound_by"]
+            held = cargs[1].shape[1] if cargs is not args else bd["lines"]
+            print(f"{name} ({width}): E {bd['E']} L {bd['L']} lines "
+                  f"{bd['lines']}: bit-equal to plain"
+                  + (f" at its first {held} of them" if held != bd["lines"]
+                     else "")
+                  + f"; warm {ms_warm:.4f} ms, L2 flushed {ms_cold:.4f} ms; "
+                  f"bound by {bd['bound_by']} {bd['bound_ms']:.4f} ms "
+                  f"({bd['nbytes'] / 1e6:.2f} MB), dependency chain "
+                  f"{bd['chain_bound_ms']:.4f} ms ({bd['chain_ops']} "
+                  f"dependent ops x 4 cycles at {sm_mhz:.0f} MHz); the "
+                  f"{gov_by} governs, warm at {governs / ms_warm:.2%} of "
+                  f"it, L2 flushed at {governs / ms_cold:.2%}; plain "
+                  f"{plain_ms:.2f} ms {card}", flush=True)
+            fig = {"max_abs_err": err, "ms": ms_warm,
+                   "ms_l2_flushed": ms_cold, "plain_ms": plain_ms,
+                   "plain_lines": held, "bound_ms": bd["bound_ms"],
+                   "bound_by": bd["bound_by"],
+                   "chain_bound_ms": bd["chain_bound_ms"],
+                   "shape": {"E": bd["E"], "L": bd["L"],
+                             "lines": bd["lines"]}}
+            if width == "factory":
+                rows[name] = dict({
+                    "name": name, "route": "cuda",
+                    "source": "audio_suite_torch/kernels/grain_scan.cu",
+                    "replaces": SCAN_REPLACES[name] + " (lax.scan; no "
+                                "Pallas kernel)", "library_ms": None}, **fig)
+            else:
+                rows[name][width] = fig
+    return rows
+
+
+def scan_ab(dev, card: str, src: str) -> dict:
+    """The grain_scan entry points of the port's source against those of
+    ``src`` (another grain_scan.cu; one whose ``gs_waveguide`` takes a ring
+    scratch and its cap, as the parent commit's does, gets a ring of
+    min(max d, L) floats an event), at both widths of ``scan_inputs``:
+    each checked bit-equal to the port's output, then timed in turns
+    (``in_turns``, one round: port, other, other, port; fewer launches a
+    run where a call takes over SCAN_AB_SLOW_MS)."""
+    from audio_suite_torch import kernels
+    lib, ptxas = build_ab("ab_grain_scan", src)
+    for row in ptxas:
+        print(f"scan A/B: ptxas other {row}", flush=True)
+    with open(src) as f:
+        ring = re.search(r"gs_waveguide\([^)]*\bcap\b", f.read()) is not None
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.gs_stick_slip.argtypes = [P, P, P, I, I, F, F, F, F, P]
+    lib.gs_chaos.argtypes = [P, P, P, I, I, F, F, P]
+    lib.gs_waveguide.argtypes = [P] * (6 if ring else 5) + [I] * (
+        4 if ring else 3) + [P]
+    lib.gs_error_string.restype = ctypes.c_char_p
+
+    def run(fn, *a):
+        rc = getattr(lib, fn)(*a, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(lib.gs_error_string(rc).decode())
+
+    def other(name, args):
         x = args[0]
         E, L = x.shape
-        lines = args[1].shape[1] if name == "waveguide_scan" else 1
-        kargs = args
-        pargs = args[:-1] if name == "waveguide_scan" else args
-        got = kern(*kargs)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        want = plain(*pargs)
-        b.record()
-        torch.cuda.synchronize()
-        plain_ms = a.elapsed_time(b)
-        err = (got - want).abs().max().item()
-        if not torch.equal(got, want):
-            raise AssertionError(f"{name} kernel differs from its plain "
-                                 f"version: max |err| {err}")
-        ms_warm = kernel_ms(lambda: kern(*kargs), TIMED_KERNEL_RUNS,
-                            KERNEL_LAUNCHES)
-        ms_cold = flushed_ms(lambda: kern(*kargs), KERNEL_LAUNCHES)
-        nbytes = 4 * (sum(t.numel() for t in args
-                          if isinstance(t, torch.Tensor)) + got.numel())
-        flops = {"stick_slip_scan": 9, "chaos_scan": 4,
-                 "waveguide_scan": 5}[name] * E * L * lines
-        bound, bound_by = bound_ms(nbytes, flops)
-        ops = chain_ops(name, args)
-        chain_ms = ops * 4 / (sm_mhz * 1e3)
-        governs = max(bound, chain_ms)
-        print(f"{name}: E {E} L {L} lines {lines}: bit-equal to plain; "
-              f"warm {ms_warm:.4f} ms, L2 flushed {ms_cold:.4f} ms; bound "
-              f"by {bound_by} {bound:.4f} ms ({nbytes / 1e6:.2f} MB), "
-              f"dependency chain {chain_ms:.4f} ms ({ops} dependent ops x 4 "
-              f"cycles at {sm_mhz:.0f} MHz); the "
-              f"{'chain' if chain_ms > bound else bound_by} governs, warm "
-              f"at {governs / ms_warm:.2%} of it; plain {plain_ms:.2f} ms "
-              f"{card}", flush=True)
-        rows[name] = {
-            "name": name, "route": "cuda",
-            "source": "audio_suite_torch/kernels/grain_scan.cu",
-            "replaces": SCAN_REPLACES[name] + " (lax.scan; no Pallas "
-                        "kernel)",
-            "max_abs_err": err, "ms": ms_warm, "ms_l2_flushed": ms_cold,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-            "chain_bound_ms": chain_ms, "library_ms": None,
-            "shape": {"E": E, "L": L, "lines": lines}}
+        out = torch.empty_like(x)
+        if name == "stick_slip_scan":
+            run("gs_stick_slip", args[0].data_ptr(), args[1].data_ptr(),
+                out.data_ptr(), E, L, *args[2:])
+        elif name == "chaos_scan":
+            run("gs_chaos", args[0].data_ptr(), args[1].data_ptr(),
+                out.data_ptr(), E, L, *args[2:])
+        else:
+            lines = args[1].shape[1]
+            ptrs = [t.data_ptr() for t in args] + [out.data_ptr()]
+            if ring:
+                cap = max(1, min(int(args[1].max()), L))
+                scratch = torch.empty(E * cap, device=x.device)
+                run("gs_waveguide", *ptrs, scratch.data_ptr(), E, L, lines,
+                    cap)
+            else:
+                run("gs_waveguide", *ptrs, E, L, lines)
+        return out
+
+    sm_mhz = float(smi("clocks.max.sm").split()[0])
+    rows = {}
+    for width in SCAN_WIDTHS:
+        inputs, real = scan_inputs(dev, width)
+        for name, args in inputs.items():
+            port = getattr(kernels, name)
+            want = port(*args)
+            got = other(name, args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"scan A/B: {name} ({width}) differs "
+                                     "from the port's")
+            bd = scan_bounds(name, args, real, sm_mhz)
+            governs = max(bd["bound_ms"], bd["chain_bound_ms"])
+            fns = {"port": lambda: port(*args),
+                   "other": lambda: other(name, args)}
+            t0 = time.perf_counter()
+            other(name, args)
+            torch.cuda.synchronize()
+            slow = (time.perf_counter() - t0) * 1e3 > SCAN_AB_SLOW_MS
+            r = in_turns(fns, 1, governs, runs=3 if slow else None,
+                         launches=5 if slow else None)
+            rows[f"{name} ({width})"] = dict(r, bounds=bd)
+            print(f"scan A/B {name} ({width}), bit-equal; governing bound "
+                  f"{governs:.4f} ms: "
+                  + "; ".join(f"{k} warm {v['warm_ms']:.4f} ms "
+                              f"({v['share_of_bound_warm']:.2%}), L2 flushed "
+                              f"{v['l2_flushed_ms']:.4f} ms" for k, v in
+                              r.items()) + f" {card}", flush=True)
     return rows
 
 
@@ -1737,7 +1870,10 @@ def microsound_all_path(dev, card: str):
     sys.path.insert(0, os.path.join(REPO, "tests"))
     import test_goldens as tg
 
+    t_phase = time.perf_counter()
     rows = scan_rows(dev, card)
+    print(f"phase 9: grain_scan rows in {time.perf_counter() - t_phase:.1f} "
+          "s", flush=True)
 
     # the main path, every launch counted: each case once on the card
     cases = ms_cases()
@@ -1825,6 +1961,7 @@ def microsound_all_path(dev, card: str):
         y, _ = ms.render(ms.MicrosoundParams.from_dict(d), device=dev)
         tg._compare(key, tg._fingerprint(y.cpu().numpy()), goldens[key])
         print(f"check: golden {key} passes on the card", flush=True)
+    print(f"phase 9: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return list(rows.values()), launches["overlap_add"]
 
 
@@ -1871,6 +2008,10 @@ def main() -> int:
             print(f"build:   ptxas {row}", flush=True)
     print(f"build: {len(built)} kernels in {time.perf_counter() - t0:.2f} s",
           flush=True)
+    if sys.argv[1:2] == ["--scan-ab"]:
+        print(json.dumps({"scan_ab": scan_ab(dev, card, sys.argv[2])}))
+        print(name_limit)
+        return 0
 
     # ---- 3.-8. the paths; the overlap-add runs on two of them, so its
     # row counts the launches of both and holds config 4's figures; the

@@ -1,0 +1,139 @@
+"""The re-expression that ``kernels/grain_scan.cu``'s waveguide kernel
+relies on, held bit for bit on the CPU, and the padding rows it is given.
+
+- The JAX scan (audio_suite_tpu/ops/generators.py:308-322) writes ring
+  slot t mod d at step t, so the slot it reads at step t holds v(t - d),
+  0 before step d: v(t) = y(t) + g v(t - d), and the steps t = j (mod d)
+  form independent columns.  ``_columns`` computes each line column by
+  column, vectorised over j, with the literal ``y + g * 0`` and
+  ``(1 - mix) * y + mix * v`` on each column's first link, and is held to
+  ``waveguide_scan_plain`` bit for bit (signed zeros included) over d of 0
+  and 1, around L, past L and not dividing L, negative and zero gains,
+  rows of +0 and -0, and the factory program's delays.
+- ``_chunk_events`` gives a padded chunk's padding events a delay of L
+  (one link a column, the kernel's cheapest); a waveguide render with
+  them is bit-equal to one with the earlier fill of 0.
+"""
+import numpy as np
+import pytest
+import torch
+
+from audio_suite_torch.models import microsound as ms
+from audio_suite_torch.ops import generators
+
+torch.set_num_threads(1)
+
+
+def _columns(x, d, g, mix):
+    """The waveguide's lines in order, each as independent columns of
+    stride max(d, 1), vectorised over the column index j: block k holds
+    steps [k s, (k + 1) s) for s = min(max(d, 1), L), and its v reads the
+    block before's (zeros for the first block)."""
+    E, L = x.shape
+    y = x.clone()
+    for e in range(E):
+        row = y[e]
+        for ln in range(d.shape[1]):
+            s = min(max(int(d[e, ln]), 1), L)
+            gl, ml = g[e, ln], mix[e, ln]
+            keep = 1.0 - ml
+            out = torch.empty_like(row)
+            prev = torch.zeros(s, dtype=torch.float32)
+            for t0 in range(0, L, s):
+                yt = row[t0:t0 + s]
+                v = yt + gl * prev[:yt.shape[0]]
+                out[t0:t0 + yt.shape[0]] = keep * yt + ml * v
+                prev = v
+            row = out
+        y[e] = row
+    return y
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.int32)
+
+
+def _case(E, L, lines, dlo, dhi, seed, g_sign=1.0, zero_rows=False):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((E, L)).astype(np.float32)
+    if zero_rows:
+        x[0, ::3] = 0.0
+        x[-1, ::2] = -0.0
+    d = rng.integers(dlo, dhi + 1, (E, lines)).astype(np.int32)
+    g = (g_sign * 0.7 * rng.uniform(0.6, 0.98, (E, lines))).astype(np.float32)
+    m = rng.uniform(0.15, 0.45, (E, lines)).astype(np.float32)
+    return tuple(torch.tensor(a) for a in (x, d, g, m))
+
+
+@pytest.mark.parametrize("E,L,lines,dlo,dhi,g_sign,zero_rows", [
+    (3, 97, 2, 0, 0, 1.0, False),          # d 0, acting as 1
+    (3, 120, 2, 1, 1, 1.0, True),          # d 1
+    (4, 256, 3, 255, 255, 1.0, False),     # d = L - 1
+    (4, 256, 3, 256, 256, 1.0, True),      # d = L
+    (4, 256, 3, 257, 4000, 1.0, True),     # d past L: pointwise lines
+    (5, 300, 3, 7, 7, 1.0, False),         # d 7, not dividing 300
+    (5, 300, 4, 2, 310, -1.0, True),       # negative gains, mixed d
+    (5, 300, 3, 2, 310, 0.0, True),        # zero gains: g * v is +-0
+])
+def test_waveguide_columns_bit_equal_to_plain(E, L, lines, dlo, dhi, g_sign,
+                                              zero_rows):
+    x, d, g, m = _case(E, L, lines, dlo, dhi, E * L + lines, g_sign,
+                       zero_rows)
+    want = generators.waveguide_scan_plain(x, d, g, m)
+    got = _columns(x, d, g, m)
+    assert torch.equal(_bits(got), _bits(want))
+    if zero_rows:
+        # the literal first link turns -0 into +0 where g >= 0
+        assert torch.any(_bits(x) != _bits(want))
+
+
+def test_waveguide_columns_bit_equal_to_plain_at_the_factory_shape():
+    """The factory program with the waveguide on (156 events of L 2 048,
+    8 lines of d 480-9 588, most past L) in its one chunk of 160, padding
+    rows included, over seeded grains."""
+    prog = ms.build_program(ms.MicrosoundParams(wg_on=True))
+    ec = ms._event_chunk(prog["E"], prog["L"])
+    (ch,) = ms._chunk_events(prog, ec)
+    L = prog["L"]
+    assert (prog["E"], ec, L) == (156, 160, 2048)
+    d = torch.tensor(ch["wg_d"])
+    assert int(d.min()) < L < int(d[:prog["E"]].max())
+    x = torch.tensor(np.random.default_rng(17).standard_normal(
+        (ec, L)).astype(np.float32))
+    g, m = torch.tensor(ch["wg_g"]), torch.tensor(ch["wg_m"])
+    want = generators.waveguide_scan_plain(x, d, g, m)
+    assert torch.equal(_bits(_columns(x, d, g, m)), _bits(want))
+
+
+def _padded_params():
+    """The factory settings at 2 s with the waveguide on: 39 events, so
+    that chunks of 32 leave 25 padding events in the second."""
+    return ms.MicrosoundParams(wg_on=True, out_dur_s=2.0)
+
+
+def test_padding_rows_carry_a_delay_of_L():
+    prog = ms.build_program(_padded_params())
+    E, L = prog["E"], prog["L"]
+    chunks = ms._chunk_events(prog, 32)
+    assert len(chunks) == 2 and E % 32 > 0
+    pad = chunks[-1]["wg_d"][E % 32:]
+    assert pad.shape[0] == 32 - E % 32 and np.all(pad == L)
+    assert np.all(chunks[-1]["amp"][E % 32:] == 0.0)
+
+
+def test_padding_delay_renders_as_the_earlier_fill_of_zero(monkeypatch):
+    p = _padded_params()
+    want, meta = ms.render(p, device="cpu", event_chunk=32)
+    assert meta["events"] % 32 > 0
+    chunk_events = ms._chunk_events
+
+    def zero_fill(prog, ec):
+        chunks = chunk_events(prog, ec)
+        real = prog["E"] - ec * (len(chunks) - 1)
+        chunks[-1]["wg_d"][real:] = 0
+        return chunks
+
+    monkeypatch.setattr(ms, "_chunk_events", zero_fill)
+    got, _ = ms.render(p, device="cpu", event_chunk=32)
+    assert float(want.abs().max()) > 0.5
+    assert torch.equal(_bits(got), _bits(want))

@@ -524,10 +524,10 @@ def _scan_noise(E, L, seed0=12345):
 
 
 @pytest.mark.parametrize("E,L", [(156, 2048), (37, 1000), (1, 130),
-                                 (288, 4096)])
+                                 (288, 4096), (288, 32768)])
 def test_stick_slip_and_chaos_kernels_bit_equal_to_plain(cuda, E, L):
     """The factory sizes (156 events of 2 048), a ragged warp and tile,
-    one event, and a config-3 event count."""
+    one event, a config-3 event count, and config 3's width."""
     from audio_suite_torch.ops import generators
     bn, on, gates, y0 = _scan_noise(E, L)
     args = (0.9, 0.06, 0.75, 0.08)
@@ -550,8 +550,13 @@ def test_stick_slip_and_chaos_kernels_bit_equal_to_plain(cuda, E, L):
     (156, 2048, 8, 480, 9600),     # the factory delays: most past L
     (40, 500, 3, 0, 12),           # short delays, d 0 and 1 among them
     (33, 300, 2, 250, 350),        # around L
+    (288, 32768, 2, 32768, 65536),  # config 3's width, d >= L: pointwise
+    (3, 70000, 3, 5000, 90000),    # a row too long for shared memory
+    (16, 1000, 3, 0, 1200),        # mixed d over -0 and negative gains
 ])
 def test_waveguide_kernel_bit_equal_to_plain(cuda, E, L, lines, dlo, dhi):
+    """Bit for bit, signed zeros included: rows of +0 and -0 samples, one
+    event's gains negative, and a row of d 0 and gain 0."""
     from audio_suite_torch.ops import generators
     rng = np.random.default_rng(E + L)
     x = torch.tensor(rng.standard_normal((E, L)).astype(np.float32))
@@ -559,15 +564,18 @@ def test_waveguide_kernel_bit_equal_to_plain(cuda, E, L, lines, dlo, dhi):
     g = torch.tensor((0.7 * rng.uniform(0.6, 0.98, (E, lines)))
                      .astype(np.float32))
     m = torch.tensor(rng.uniform(0.15, 0.45, (E, lines)).astype(np.float32))
-    g[-1] = 0.0                                   # a padding event's row
+    x[0, ::3] = 0.0
+    x[1 % E, ::2] = -0.0
+    g[E // 2] = -g[E // 2]
+    g[-1] = 0.0
     d[-1] = 0
     want = generators.waveguide_scan_plain(x, d, g, m)
     n0 = kernels.waveguide_scan.launches
     got = generators.waveguide_scan(x.to(cuda), d.to(cuda), g.to(cuda),
-                                    m.to(cuda), int(d.max()))
+                                    m.to(cuda))
     torch.cuda.synchronize()
     assert kernels.waveguide_scan.launches == n0 + 1
-    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
 
 
 def test_grain_scan_kernels_reject_what_they_do_not_take(cuda):
@@ -581,7 +589,7 @@ def test_grain_scan_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(TypeError):
         kernels.waveguide_scan(bn.to(cuda), torch.ones(4, 2, device=cuda),
                                torch.ones(4, 2, device=cuda),
-                               torch.ones(4, 2, device=cuda), 3)
+                               torch.ones(4, 2, device=cuda))
 
 
 @pytest.mark.parametrize("mode", ["Stick–slip friction", "Micro-chaos"])
