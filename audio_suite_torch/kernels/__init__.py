@@ -86,6 +86,11 @@ _SIGNATURES = {
         "gs_stick_slip": ([_P, _P, _P, ctypes.c_int, ctypes.c_int,
                            ctypes.c_float, ctypes.c_float, ctypes.c_float,
                            ctypes.c_float, _P], ctypes.c_int),
+        "gs_stick_slip_noise": ([_P, _P, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_float, ctypes.c_float,
+                                 ctypes.c_float, ctypes.c_float,
+                                 ctypes.c_uint32, ctypes.c_uint32, _P],
+                                ctypes.c_int),
         "gs_chaos": ([_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                       ctypes.c_float, _P], ctypes.c_int),
         "gs_waveguide": ([_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
@@ -301,6 +306,32 @@ def stick_slip_scan(bn: torch.Tensor, on: torch.Tensor, threshold: float,
 
 
 stick_slip_scan.launches = 0
+
+
+def stick_slip_noise_scan(seed: torch.Tensor, L: int, threshold: float,
+                          build: float, decay: float, noise_amt: float,
+                          streams: tuple[int, int]) -> torch.Tensor:
+    """Launch ``grain_scan.cu``'s stick-slip recurrence with its noise
+    drawn in the kernel, on the current stream, and return the new xs
+    f32 [E, L]: the rows are ``ops/noise.py``'s ``normal(seed, t, s)`` for
+    t in [0, L) and s each of ``streams`` (the build and the out stream),
+    from the seeds int32 [E] (contiguous, on a CUDA device; read as
+    uint32); the scalars are f32 values."""
+    E = seed.shape[0] if seed.dim() == 1 else -1
+    _scan_check("stick_slip_noise", (seed,), (torch.int32,), ((E,),))
+    if L < 1:
+        raise ValueError(f"stick_slip_noise kernel: L {L} (at least 1)")
+    xs = torch.empty(E, L, dtype=torch.float32, device=seed.device)
+    if E:
+        sb, so = (int(s) & 0xFFFFFFFF for s in streams)
+        _gs_run("gs_stick_slip_noise", seed.device, seed.data_ptr(),
+                xs.data_ptr(), E, L, threshold, build, decay, noise_amt, sb,
+                so)
+        stick_slip_noise_scan.launches += 1
+    return xs
+
+
+stick_slip_noise_scan.launches = 0
 
 
 def chaos_scan(gates: torch.Tensor, y0: torch.Tensor, r: float,

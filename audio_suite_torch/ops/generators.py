@@ -12,7 +12,10 @@ lines) are ``lax.scan``s in the JAX package.  Here each has a plain
 PyTorch version, a loop over t on [E] tensors (``*_scan_plain``), and a
 dispatcher (``*_scan``) that runs the plain version for tensors on the CPU
 and the hand-written CUDA kernel (``kernels/grain_scan.cu``) for tensors on
-the card; both round every op once, so they are bit-equal.
+the card; both round every op once, so they are bit-equal.  Stick-slip's
+generator goes through ``stick_slip_noise_scan``, whose kernel also draws
+the recurrence's two counter-noise rows itself, bit-equal to
+``noise.normal``.
 
 Scatter-adds whose targets can repeat (crackle's spikes) add in a fixed
 order, one scatter per rank of a repeated target (``ordered_scatter_add``),
@@ -292,6 +295,18 @@ def stick_slip_scan_plain(bn: torch.Tensor, on: torch.Tensor, threshold,
     return xs
 
 
+def stick_slip_noise_scan_plain(seed: torch.Tensor, L: int, threshold,
+                                build, decay, noise_amt) -> torch.Tensor:
+    """The stick-slip recurrence over its own counter noise: the rows
+    ``noise.normal(seed, t, STREAM_BUILD)`` and ``(..., STREAM_OUT)`` for t
+    in [0, L), then ``stick_slip_scan_plain``; seed [E] -> xs f32 [E, L]."""
+    i = torch.arange(L, device=seed.device)
+    seed = seed.reshape(-1, 1)
+    return stick_slip_scan_plain(noise.normal(seed, i, STREAM_BUILD),
+                                 noise.normal(seed, i, STREAM_OUT),
+                                 threshold, build, decay, noise_amt)
+
+
 def chaos_scan_plain(gates: torch.Tensor, y0: torch.Tensor, r,
                      gate) -> torch.Tensor:
     """The gated logistic map (generators.py:223-229) over t, for every
@@ -341,6 +356,19 @@ def stick_slip_scan(bn, on, threshold, build, decay, noise_amt):
                                    _f32(decay), _f32(noise_amt))
 
 
+def stick_slip_noise_scan(seed, L, threshold, build, decay, noise_amt):
+    """``stick_slip_noise_scan_plain`` for a seed tensor on the CPU; on the
+    card the ``grain_scan.cu`` kernel, which draws both noise rows itself
+    (a failed build or launch raises)."""
+    if seed.device.type == "cpu":
+        return stick_slip_noise_scan_plain(seed, L, threshold, build, decay,
+                                           noise_amt)
+    return kernels.stick_slip_noise_scan(
+        seed.reshape(-1).to(torch.int32).contiguous(), L, _f32(threshold),
+        _f32(build), _f32(decay), _f32(noise_amt),
+        (STREAM_BUILD, STREAM_OUT))
+
+
 def chaos_scan(gates, y0, r, gate):
     """``chaos_scan_plain`` for CPU tensors; on the card the
     ``grain_scan.cu`` kernel."""
@@ -364,12 +392,14 @@ def waveguide_scan(x, d, g, mix):
 def gen_stick_slip(i: torch.Tensor, n: torch.Tensor, seed: torch.Tensor,
                    threshold, build, decay, noise_amt) -> torch.Tensor:
     """Stateful stick-slip friction (generators.py:188): the recurrence
-    over counter noise, under a Hann window, zero beyond n."""
+    over counter noise, under a Hann window, zero beyond n.  ``i`` is the
+    padded index grid ``arange(L)``, as its one caller
+    (``models/microsound.py:_generate``) passes it: the noise is drawn at
+    t in [0, L), on the card inside the kernel
+    (``stick_slip_noise_scan``)."""
     n = _col(n.to(torch.int64))
-    seed = _col(seed)
-    bn = noise.normal(seed, i, STREAM_BUILD)
-    on = noise.normal(seed, i, STREAM_OUT)
-    xs = stick_slip_scan(bn, on, threshold, build, decay, noise_amt)
+    xs = stick_slip_noise_scan(seed, i.shape[-1], threshold, build, decay,
+                               noise_amt)
     return torch.where(i < n, xs * hann_t(i, n), 0.0)
 
 

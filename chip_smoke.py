@@ -7,7 +7,9 @@
 The second form builds the kernels, then only holds another grain_scan.cu
 (e.g. an earlier commit's, from ``git archive`` into the git-ignored
 ``_local/``) against the port's at phase 9's two shapes and times the two
-in turns (``scan_ab``).
+in turns (``scan_ab``); a source without the stick-slip kernel that draws
+its own noise meets it with its whole path (two ``noise.normal`` draws
+and its row kernel).
 
 Drives audio_suite_torch's ported paths at full size on the card, in
 phases; any failure raises and the exit code is non-zero.  The paths:
@@ -118,19 +120,25 @@ Phases:
    kernels), and one of the same steps with the noise draws served from a
    cache (``CachedDraws``): the difference is the draws' share;
 9. Microsound, all paths: each ``grain_scan.cu`` entry point (the
-   stick-slip and micro-chaos recurrences, the waveguide's delay lines)
-   against its plain version at the factory size (E 160, L 2 048) and at
-   config 3's width (E 288, L 32 768; the waveguide held at its first
-   line there, the plain loop being ~100 us of host time a step),
-   bit-equal, timed warm and L2 flushed beside its two bounds (bytes over
-   the memory rate, and the dependency chain: steps x dependent f32 ops x
-   4 cycles at the card's maximum SM clock) and the plain version; the
-   20 renders (11 modes, 7 option paths, 2 at config 3's width) with
-   every launch counted (each scan kernel launched on its mode's
-   render); each render finite, loud, and within -100 dBFS of the same
-   render on the CPU;
+   stick-slip recurrence from its noise rows and drawing them itself,
+   the micro-chaos recurrence, the waveguide's delay lines) against its
+   plain version at the factory size (E 160, L 2 048) and at config 3's
+   width (E 288, L 32 768; the waveguide held at its first line there,
+   the plain loop being ~100 us of host time a step), bit-equal, timed
+   warm and L2 flushed beside its bounds (bytes over the memory rate, the
+   dependency chain: steps x dependent f32 ops x 4 cycles at the card's
+   maximum SM clock, and for the stick-slip that draws its noise the
+   hashes x their SASS instructions, counted from ``cuobjdump -sass``,
+   over each class's issue rate) and the plain version, the fused
+   stick-slip also beside the unfused path it replaces; the 20 renders
+   (11 modes, 7 option paths, 2 at config 3's width) with every launch
+   counted (each scan kernel launched on its mode's render; the
+   stick-slip renders launch the fused kernel, never the row form, and
+   make no torch draw of its noise rows); each render finite, loud, and
+   within -100 dBFS of the same render on the CPU;
    per render the wall (median of 3, PCM16, pulled), one profiler
-   window's device events and busy ms, and its launches; feedback and
+   window's device events and busy ms, and its launches, the two
+   stick-slip renders' also on a line of their own; feedback and
    imprint in chunks of 32 bit-equal to the whole render; the
    ``microsound_chaos`` and ``microsound_cepstral`` golden fingerprints
    (tests/test_goldens.py) from the card's renders.
@@ -180,9 +188,9 @@ HBM_BYTES_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOP_S = 67e12         # H100 SXM f32 rate outside the tensor cores
 KERNELS = ("overlap_add", "lerp_read", "grain_scan")  # one nvcc each
 # launch-counting wrappers: lerp_read.cu's two kernels and grain_scan.cu's
-# three entry points count apart
+# four entry points count apart
 WRAPPERS = ("overlap_add", "lerp_read", "scrub_read", "stick_slip_scan",
-            "chaos_scan", "waveguide_scan")
+            "stick_slip_noise_scan", "chaos_scan", "waveguide_scan")
 TAPE_SECONDS = 180.0   # bench config 1's tape and target length
 TAPE_FRAMES = 8745204  # its output frames after the retime
 PL_SECONDS = 8.0       # bench config 4's render length
@@ -1555,13 +1563,33 @@ def fire_path(dev, card: str, grid_run_ms: float):
 
 # ---- phase 9: every Microsound mode and option
 
-MS_SCANS = ("stick_slip_scan", "chaos_scan", "waveguide_scan")
+# the grain_scan entry points of phase 9's renders, each with the render
+# that launches it
+MS_SCANS = {"stick_slip_noise_scan": "a:Stick–slip friction",
+            "chaos_scan": "a:Micro-chaos",
+            "waveguide_scan": "b:resonator+waveguide"}
+MS_STICK_SLIP = ("a:Stick–slip friction", "c:config3 stick-slip")
 MS_TIMED = 3           # timed renders per case (their median)
 MS_CHUNK = 32          # the chunked feedback / imprint render's chunk
 # dependent f32 ops a step adds to the critical path (4 cycles each on
 # Hopper), where every step reads the step before: the stick-slip force's
 # add, compare and select; the map's two multiplies
-SCAN_CHAIN_OPS = {"stick_slip_scan": 3, "chaos_scan": 2}
+SCAN_CHAIN_OPS = {"stick_slip_scan": 3, "stick_slip_noise_scan": 3,
+                  "chaos_scan": 2}
+# f32 operations a sample: the stick-slip step's 9 (its terms, the force's
+# add, compare, select, multiply), the fused kernel's two normals 26 more
+# (11 adds, a scale and - 6 each), the map's 4, a waveguide line's 5
+SCAN_FLOPS = {"stick_slip_scan": 9, "stick_slip_noise_scan": 35,
+              "chaos_scan": 4, "waveguide_scan": 5}
+SS_HASHES = 24            # murmur3 hashes a sample of the fused stick-slip
+# per-SM issue rates a clock on compute capability 9.0 (CUDA C++
+# Programming Guide, arithmetic instruction throughput) of the SASS classes
+# that ``sass_hash_counts`` counts: 32-bit integer add, logic, shift,
+# compare and select (I2FP, the integer-to-f32 conversion that nvcc emits
+# for sm_90, counted with them: the Programming Guide's 16 for
+# conversions would lengthen the bound), integer multiply-add, f32 add /
+# multiply / compare / select, and 4 warp instructions a clock in all
+SASS_RATES = {"alu": 64, "imad": 64, "conv": 16, "fp": 128, "all": 128}
 SCAN_WIDTHS = ("factory", "config3")   # the shapes of ``scan_inputs``
 SCAN_C3_PLAIN_LINES = 1   # waveguide lines held against the plain loop at
 #                           config 3's width (~6 s of host time a line)
@@ -1569,6 +1597,7 @@ SCAN_AB_SLOW_MS = 5.0     # scan A/B: a call slower than this is timed in
 #                           runs of 5 launches
 SCAN_REPLACES = {
     "stick_slip_scan": "audio_suite_tpu/ops/generators.py:188",
+    "stick_slip_noise_scan": "audio_suite_tpu/ops/generators.py:188",
     "chaos_scan": "audio_suite_tpu/ops/generators.py:214",
     "waveguide_scan": "audio_suite_tpu/ops/generators.py:304"}
 
@@ -1649,7 +1678,8 @@ def scan_inputs(dev, width: str):
     the factory program with the waveguide on (its one chunk: E 160 with
     padding, L 2 048); "config3": bench config 3 in stick-slip mode with
     the waveguide on (its one chunk: E 288, L 32 768).  The stick-slip
-    noise rows and micro-chaos gates of the chunk's seeds, and the
+    noise rows and micro-chaos gates of the chunk's seeds, the seeds
+    themselves for the stick-slip kernel that draws its own rows, and the
     waveguide's delays, gains and mixes over seeded grains."""
     from audio_suite_torch.models import microsound as ms
     from audio_suite_torch.ops import generators, noise
@@ -1671,6 +1701,8 @@ def scan_inputs(dev, width: str):
         "stick_slip_scan": (noise.normal(seed, i, generators.STREAM_BUILD),
                             noise.normal(seed, i, generators.STREAM_OUT),
                             0.9, 0.06, 0.75, 0.08),
+        "stick_slip_noise_scan": (ev["seed"].contiguous(), prog["L"], 0.9,
+                                  0.06, 0.75, 0.08),
         "chaos_scan": (noise.uniform(seed, i, generators.STREAM_GATE),
                        generators.chaos_y0(ev["seed"]), 3.92, 0.35),
         "waveguide_scan": (x, ev["wg_d"], ev["wg_g"], ev["wg_m"])}, \
@@ -1686,6 +1718,8 @@ def chain_ops(name: str, args, real: int) -> int:
     step t (an add, a multiply and an add), so the lines pipeline: 3 ops
     a line plus 2 a link on the event's smallest d, the longest over the
     chunk's ``real`` events (the padding events' rows are discarded)."""
+    if name == "stick_slip_noise_scan":
+        return args[1] * SCAN_CHAIN_OPS[name]
     if name != "waveguide_scan":
         return args[0].shape[1] * SCAN_CHAIN_OPS[name]
     L = args[0].shape[1]
@@ -1694,52 +1728,174 @@ def chain_ops(name: str, args, real: int) -> int:
     return 3 * d.shape[1] + 2 * int(links.max())
 
 
-def scan_bounds(name: str, args, real: int, sm_mhz: float) -> dict:
+def scan_shape(name: str, args) -> tuple[int, int]:
+    """A grain_scan call's (E, L)."""
+    if name == "stick_slip_noise_scan":
+        return args[0].shape[0], args[1]
+    return tuple(args[0].shape)
+
+
+def sass_class(op: str) -> str:
+    """The issue class of a SASS opcode for ``SASS_RATES`` ("other":
+    memory, control, barriers)."""
+    base = op.split(".")[0]
+    if base == "I2F":
+        return "conv"
+    if base.startswith("IMAD"):
+        return "imad"
+    if base in ("FADD", "FMUL", "FFMA", "FMNMX", "FSEL", "FSETP", "FSET"):
+        return "fp"
+    if base in ("IADD3", "LOP3", "SHF", "LEA", "ISETP", "SEL", "VIADD",
+                "VIADDMNMX", "IABS", "PRMT", "I2FP", "MOV", "IMNMX",
+                "PLOP3", "P2R", "R2P", "FLO", "POPC", "BREV", "CS2R"):
+        return "alu"
+    return "other"
+
+
+def sass_hash_counts(so: str) -> dict:
+    """The fused stick-slip kernel's SASS instructions a hash, by issue
+    class, from ``cuobjdump -sass`` of the built library: the loop that
+    holds the kernel's integer-to-f32 conversions (one a hash), from the
+    target of its back edge to that edge, over its conversions.  The loop
+    is the producers' whole work a sample (its key, the 24 hashes, the two
+    sums and terms, their stores and the loop's own counting)."""
+    from audio_suite_torch import kernels
+    cuobj = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobj, "-sass", so], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    body = next(f for f in re.split(r"\n\s*Function : ", sass)
+                if "stick_slip_kernelILb1E" in f.split("\n", 1)[0])
+    pat = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T\d]+\s+)?"
+                     r"([A-Z][\w.]*)([^;]*);")
+    ins = [(int(a, 16), op, rest) for a, op, rest in pat.findall(body)]
+    conv = [a for a, op, _ in ins if op.startswith("I2F")]
+    for a, op, rest in ins:
+        m = re.search(r"0x([0-9a-f]+)", rest)
+        if a > max(conv) and op.startswith("BRA") and m \
+                and int(m.group(1), 16) <= min(conv):
+            lo, hi = int(m.group(1), 16), a
+            break
+    loop = [op for a, op, _ in ins if lo <= a <= hi and op != "NOP"]
+    hashes = sum(op.startswith("I2F") for op in loop)
+    counts = {k: 0 for k in SASS_RATES}
+    for op in loop:
+        cls = sass_class(op)
+        if cls in counts:
+            counts[cls] += 1
+        counts["all"] += 1
+    return {"loop_instructions": len(loop), "hashes_in_loop": hashes,
+            "per_hash": {k: v / hashes for k, v in counts.items()}}
+
+
+def scan_bounds(name: str, args, real: int, sm_mhz: float,
+                hash_sass: dict = None) -> dict:
     """A grain_scan call's bounds from its inputs: bytes (each input read
     once, the output written once) over the memory rate, its f32 ops over
     the f32 rate, and its dependency chain (``chain_ops`` x 4 cycles at
-    the card's maximum SM clock)."""
-    E, L = args[0].shape
+    the card's maximum SM clock).  The fused stick-slip kernel also hashes
+    (``SS_HASHES`` a sample): its hash bound is the hashes x the SASS
+    instructions a hash in each class (``hash_sass``) over that class's
+    rate on every SM, the slowest class, and counts as its operations."""
+    E, L = scan_shape(name, args)
     lines = args[1].shape[1] if name == "waveguide_scan" else 1
     nbytes = 4 * (sum(t.numel() for t in args
                       if isinstance(t, torch.Tensor)) + E * L)
-    flops = {"stick_slip_scan": 9, "chaos_scan": 4,
-             "waveguide_scan": 5}[name] * E * L * lines
-    bound, bound_by = bound_ms(nbytes, flops)
+    bound, bound_by = bound_ms(nbytes, SCAN_FLOPS[name] * E * L * lines)
     ops = chain_ops(name, args, real)
-    return {"E": E, "L": L, "lines": lines, "nbytes": nbytes,
-            "bound_ms": bound, "bound_by": bound_by, "chain_ops": ops,
-            "chain_bound_ms": ops * 4 / (sm_mhz * 1e3)}
+    bd = {"E": E, "L": L, "lines": lines, "nbytes": nbytes,
+          "bound_ms": bound, "bound_by": bound_by, "chain_ops": ops,
+          "chain_bound_ms": ops * 4 / (sm_mhz * 1e3)}
+    if name == "stick_slip_noise_scan":
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        per = hash_sass["per_hash"]
+        cls = max(SASS_RATES, key=lambda k: per[k] / SASS_RATES[k])
+        cycles = SS_HASHES * E * L * per[cls] / SASS_RATES[cls] / sms
+        bd.update(hashes=SS_HASHES * E * L, hash_bound_ms=cycles /
+                  (sm_mhz * 1e3), hash_bound_by=cls,
+                  hash_sass_per_hash=per)
+        if bd["hash_bound_ms"] > bound:
+            bd["bound_ms"], bd["bound_by"] = bd["hash_bound_ms"], "operations"
+    return bd
 
 
-def scan_rows(dev, card: str) -> dict:
+def scan_kernel(name: str):
+    """The launch-counting wrapper of a grain_scan entry point, called
+    with its ``scan_inputs`` arguments."""
+    from audio_suite_torch import kernels
+    from audio_suite_torch.ops import generators
+    if name == "stick_slip_noise_scan":
+        return lambda *a: kernels.stick_slip_noise_scan(
+            *a, (generators.STREAM_BUILD, generators.STREAM_OUT))
+    return getattr(kernels, name)
+
+
+def scan_rows(dev, card: str, so: str) -> dict:
     """Each grain_scan entry point against its plain version, bit-equal,
     timed warm and L2 flushed, with its bounds (``scan_bounds``), at the
     factory size and at config 3's width (``scan_inputs``).  At config 3's
     width the waveguide is held against its plain loop at its first
     SCAN_C3_PLAIN_LINES lines (the loop takes ~100 us of host time a step)
-    and timed at all of them."""
-    from audio_suite_torch import kernels
-    from audio_suite_torch.ops import generators
+    and timed at all of them.  The stick-slip kernel that draws its own
+    noise is held against its plain version, the two ``noise.normal``
+    draws (timed, and equal to the row form's inputs) and the row form's
+    plain loop on them (its result and time taken from the row form's
+    check just before), and is timed beside the unfused path it replaces
+    (the two draws and the row form's kernel); the row form, off the
+    render's path, is reported inside its row (``row_form``).  ``so``:
+    the built grain_scan library, whose SASS gives the hash bound."""
+    from audio_suite_torch.ops import generators, noise
     sm_mhz = float(smi("clocks.max.sm").split()[0])
-    rows = {}
+    hash_sass = sass_hash_counts(so)
+    print(f"grain_scan SASS: the fused stick-slip's hashing loop, "
+          f"{hash_sass['loop_instructions']} instructions for "
+          f"{hash_sass['hashes_in_loop']} hashes; a hash: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in
+                      hash_sass["per_hash"].items()), flush=True)
+    rows, row_form = {}, {}
     for width in SCAN_WIDTHS:
         inputs, real = scan_inputs(dev, width)
+        plain_rows = None
         for name, args in inputs.items():
-            kern = getattr(kernels, name)
+            kern = scan_kernel(name)
             plain = getattr(generators, name + "_plain")
             cargs = args
             if name == "waveguide_scan" and width == "config3":
                 cargs = (args[0],) + tuple(
                     t[:, :SCAN_C3_PLAIN_LINES].contiguous() for t in args[1:])
             got = kern(*cargs)
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            want = plain(*cargs)
-            b.record()
-            torch.cuda.synchronize()
-            plain_ms = a.elapsed_time(b)
+            extra = {}
+            if name == "stick_slip_noise_scan":
+                seed, L = args[0][:, None], args[1]
+                i = torch.arange(L, device=dev)
+                draw = lambda: (
+                    noise.normal(seed, i, generators.STREAM_BUILD),
+                    noise.normal(seed, i, generators.STREAM_OUT))
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                bn, on = draw()
+                b.record()
+                torch.cuda.synchronize()
+                rows_args = inputs["stick_slip_scan"]
+                if not (torch.equal(bn, rows_args[0])
+                        and torch.equal(on, rows_args[1])):
+                    raise AssertionError("the fused stick-slip's draws "
+                                         "differ from the row form's inputs")
+                want, loop_ms = plain_rows
+                plain_ms = a.elapsed_time(b) + loop_ms
+                rows_kern = scan_kernel("stick_slip_scan")
+                extra["unfused_ms"] = cuda_ms(
+                    lambda: rows_kern(*draw(), *rows_args[2:]), 3)
+            else:
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                want = plain(*cargs)
+                b.record()
+                torch.cuda.synchronize()
+                plain_ms = a.elapsed_time(b)
+                if name == "stick_slip_scan":
+                    plain_rows = (want, plain_ms)
             err = (got - want).abs().max().item()
             if not torch.equal(got, want):
                 raise AssertionError(f"{name} kernel differs from its plain "
@@ -1748,7 +1904,7 @@ def scan_rows(dev, card: str) -> dict:
             ms_warm = kernel_ms(lambda: kern(*args), TIMED_KERNEL_RUNS,
                                 KERNEL_LAUNCHES)
             ms_cold = flushed_ms(lambda: kern(*args), KERNEL_LAUNCHES)
-            bd = scan_bounds(name, args, real, sm_mhz)
+            bd = scan_bounds(name, args, real, sm_mhz, hash_sass)
             governs = max(bd["bound_ms"], bd["chain_bound_ms"])
             gov_by = "chain" if bd["chain_bound_ms"] > bd["bound_ms"] \
                 else bd["bound_by"]
@@ -1759,20 +1915,37 @@ def scan_rows(dev, card: str) -> dict:
                      else "")
                   + f"; warm {ms_warm:.4f} ms, L2 flushed {ms_cold:.4f} ms; "
                   f"bound by {bd['bound_by']} {bd['bound_ms']:.4f} ms "
-                  f"({bd['nbytes'] / 1e6:.2f} MB), dependency chain "
+                  f"({bd['nbytes'] / 1e6:.2f} MB"
+                  + (f"; {bd['hashes'] / 1e6:.1f} M hashes, "
+                     f"{bd['hash_bound_ms']:.4f} ms by "
+                     f"{bd['hash_bound_by']}" if "hashes" in bd else "")
+                  + f"), dependency chain "
                   f"{bd['chain_bound_ms']:.4f} ms ({bd['chain_ops']} "
                   f"dependent ops x 4 cycles at {sm_mhz:.0f} MHz); the "
                   f"{gov_by} governs, warm at {governs / ms_warm:.2%} of "
                   f"it, L2 flushed at {governs / ms_cold:.2%}; plain "
-                  f"{plain_ms:.2f} ms {card}", flush=True)
-            fig = {"max_abs_err": err, "ms": ms_warm,
-                   "ms_l2_flushed": ms_cold, "plain_ms": plain_ms,
-                   "plain_lines": held, "bound_ms": bd["bound_ms"],
-                   "bound_by": bd["bound_by"],
-                   "chain_bound_ms": bd["chain_bound_ms"],
-                   "shape": {"E": bd["E"], "L": bd["L"],
-                             "lines": bd["lines"]}}
-            if width == "factory":
+                  f"{plain_ms:.2f} ms"
+                  + (f"; the unfused path (two noise.normal draws and the "
+                     f"row form) {extra['unfused_ms']:.3f} ms"
+                     if extra else "") + f" {card}", flush=True)
+            fig = dict({"max_abs_err": err, "ms": ms_warm,
+                        "ms_l2_flushed": ms_cold, "plain_ms": plain_ms,
+                        "plain_lines": held, "bound_ms": bd["bound_ms"],
+                        "bound_by": bd["bound_by"],
+                        "chain_bound_ms": bd["chain_bound_ms"],
+                        "shape": {"E": bd["E"], "L": bd["L"],
+                                  "lines": bd["lines"]}}, **extra)
+            if "hashes" in bd:
+                fig.update(hashes=bd["hashes"],
+                           hash_bound_ms=bd["hash_bound_ms"],
+                           hash_bound_by=bd["hash_bound_by"],
+                           hash_sass_per_hash=bd["hash_sass_per_hash"])
+            if name == "stick_slip_scan":
+                if width == "factory":
+                    row_form.update(fig, launches_on_main_path=0)
+                else:
+                    row_form[width] = fig
+            elif width == "factory":
                 rows[name] = dict({
                     "name": name, "route": "cuda",
                     "source": "audio_suite_torch/kernels/grain_scan.cu",
@@ -1780,25 +1953,35 @@ def scan_rows(dev, card: str) -> dict:
                                 "Pallas kernel)", "library_ms": None}, **fig)
             else:
                 rows[name][width] = fig
+    rows["stick_slip_noise_scan"]["row_form"] = row_form
     return rows
 
 
 def scan_ab(dev, card: str, src: str) -> dict:
     """The grain_scan entry points of the port's source against those of
     ``src`` (another grain_scan.cu; one whose ``gs_waveguide`` takes a ring
-    scratch and its cap, as the parent commit's does, gets a ring of
-    min(max d, L) floats an event), at both widths of ``scan_inputs``:
-    each checked bit-equal to the port's output, then timed in turns
-    (``in_turns``, one round: port, other, other, port; fewer launches a
-    run where a call takes over SCAN_AB_SLOW_MS)."""
+    scratch and its cap, as an earlier commit's does, gets a ring of
+    min(max d, L) floats an event; one without ``gs_stick_slip_noise``, as
+    the parent commit's, meets the fused stick-slip with its own whole
+    path: the two ``noise.normal`` draws and its ``gs_stick_slip``), at
+    both widths of ``scan_inputs``: each checked bit-equal to the port's
+    output, then timed in turns (``in_turns``, one round: port, other,
+    other, port; fewer launches a run where a call takes over
+    SCAN_AB_SLOW_MS)."""
     from audio_suite_torch import kernels
+    from audio_suite_torch.ops import generators, noise
     lib, ptxas = build_ab("ab_grain_scan", src)
     for row in ptxas:
         print(f"scan A/B: ptxas other {row}", flush=True)
     with open(src) as f:
-        ring = re.search(r"gs_waveguide\([^)]*\bcap\b", f.read()) is not None
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        text = f.read()
+    ring = re.search(r"gs_waveguide\([^)]*\bcap\b", text) is not None
+    fused = "gs_stick_slip_noise" in text
+    P, I, F, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+        ctypes.c_uint32
     lib.gs_stick_slip.argtypes = [P, P, P, I, I, F, F, F, F, P]
+    if fused:
+        lib.gs_stick_slip_noise.argtypes = [P, P, I, I, F, F, F, F, U, U, P]
     lib.gs_chaos.argtypes = [P, P, P, I, I, F, F, P]
     lib.gs_waveguide.argtypes = [P] * (6 if ring else 5) + [I] * (
         4 if ring else 3) + [P]
@@ -1809,14 +1992,32 @@ def scan_ab(dev, card: str, src: str) -> dict:
         if rc != 0:
             raise RuntimeError(lib.gs_error_string(rc).decode())
 
+    def stick_slip(bn, on, scalars):
+        out = torch.empty_like(bn)
+        run("gs_stick_slip", bn.data_ptr(), on.data_ptr(), out.data_ptr(),
+            *bn.shape, *scalars)
+        return out
+
     def other(name, args):
+        if name == "stick_slip_noise_scan":
+            seed, L = args[0], args[1]
+            if not fused:
+                i = torch.arange(L, device=seed.device)
+                return stick_slip(
+                    noise.normal(seed[:, None], i, generators.STREAM_BUILD),
+                    noise.normal(seed[:, None], i, generators.STREAM_OUT),
+                    args[2:])
+            out = torch.empty(seed.shape[0], L, device=seed.device)
+            run("gs_stick_slip_noise", seed.data_ptr(), out.data_ptr(),
+                seed.shape[0], L, *args[2:], generators.STREAM_BUILD,
+                generators.STREAM_OUT)
+            return out
         x = args[0]
         E, L = x.shape
-        out = torch.empty_like(x)
         if name == "stick_slip_scan":
-            run("gs_stick_slip", args[0].data_ptr(), args[1].data_ptr(),
-                out.data_ptr(), E, L, *args[2:])
-        elif name == "chaos_scan":
+            return stick_slip(args[0], args[1], args[2:])
+        out = torch.empty_like(x)
+        if name == "chaos_scan":
             run("gs_chaos", args[0].data_ptr(), args[1].data_ptr(),
                 out.data_ptr(), E, L, *args[2:])
         else:
@@ -1832,21 +2033,24 @@ def scan_ab(dev, card: str, src: str) -> dict:
         return out
 
     sm_mhz = float(smi("clocks.max.sm").split()[0])
+    hash_sass = sass_hash_counts(kernels.build("grain_scan"))
     rows = {}
     for width in SCAN_WIDTHS:
         inputs, real = scan_inputs(dev, width)
         for name, args in inputs.items():
-            port = getattr(kernels, name)
+            port = scan_kernel(name)
             want = port(*args)
             got = other(name, args)
             torch.cuda.synchronize()
             if not torch.equal(got, want):
                 raise AssertionError(f"scan A/B: {name} ({width}) differs "
                                      "from the port's")
-            bd = scan_bounds(name, args, real, sm_mhz)
+            bd = scan_bounds(name, args, real, sm_mhz, hash_sass)
             governs = max(bd["bound_ms"], bd["chain_bound_ms"])
+            label = "other" if fused or name != "stick_slip_noise_scan" \
+                else "other: two draws + gs_stick_slip"
             fns = {"port": lambda: port(*args),
-                   "other": lambda: other(name, args)}
+                   label: lambda: other(name, args)}
             t0 = time.perf_counter()
             other(name, args)
             torch.cuda.synchronize()
@@ -1865,24 +2069,39 @@ def scan_ab(dev, card: str, src: str) -> dict:
 
 def microsound_all_path(dev, card: str):
     """Phase 9: every Microsound mode and option; returns (the grain_scan
-    rows, the phase's overlap-add launches)."""
+    rows, the phase's overlap-add launches).  The stick-slip renders draw
+    their two noise rows in the kernel: a torch ``noise.normal`` call of
+    the build or out stream during the main path fails the phase."""
+    from audio_suite_torch import kernels
     from audio_suite_torch.models import microsound as ms
+    from audio_suite_torch.ops import generators, noise
     sys.path.insert(0, os.path.join(REPO, "tests"))
     import test_goldens as tg
 
     t_phase = time.perf_counter()
-    rows = scan_rows(dev, card)
+    rows = scan_rows(dev, card, kernels.build("grain_scan"))
     print(f"phase 9: grain_scan rows in {time.perf_counter() - t_phase:.1f} "
           "s", flush=True)
 
-    # the main path, every launch counted: each case once on the card
+    # the main path, every launch counted: each case once on the card, with
+    # the torch draws of the stick-slip streams counted
     cases = ms_cases()
+    ss_streams = (generators.STREAM_BUILD, generators.STREAM_OUT)
+    ss_draws = []
+    normal = noise.normal
+
+    def counted_normal(seed, idx, stream=0):
+        if stream in ss_streams:
+            ss_draws.append(stream)
+        return normal(seed, idx, stream)
+
     reset_counts()
     outs, per_case = {}, {}
     for label, d, kw in cases:
         before = read_counts()
-        y, meta = ms.render(ms.MicrosoundParams.from_dict(d), device=dev,
-                            **kw)
+        with mock.patch.object(noise, "normal", counted_normal):
+            y, meta = ms.render(ms.MicrosoundParams.from_dict(d), device=dev,
+                                **kw)
         torch.cuda.synchronize()
         after = read_counts()
         if not bool(torch.isfinite(y).all()):
@@ -1894,17 +2113,26 @@ def microsound_all_path(dev, card: str):
         per_case[label] = ({k: after[k] - before[k] for k in WRAPPERS},
                            meta["events"])
     launches = read_counts()
-    for name, label in (("stick_slip_scan", "a:Stick–slip friction"),
-                        ("chaos_scan", "a:Micro-chaos"),
-                        ("waveguide_scan", "b:resonator+waveguide")):
+    for name, label in MS_SCANS.items():
         if per_case[label][0][name] < 1:
             raise AssertionError(f"{label} did not launch {name}")
         rows[name]["launches"] = launches[name]
+    if launches["stick_slip_scan"] or ss_draws:
+        raise AssertionError(
+            f"the stick-slip renders took the row form "
+            f"({launches['stick_slip_scan']} launches) or drew its rows in "
+            f"torch ({len(ss_draws)} noise.normal calls)")
+    print(f"check: the stick-slip renders launched the fused kernel "
+          + ", ".join(f"{per_case[lb][0]['stick_slip_noise_scan']}x "
+                      f"({lb}, {per_case[lb][1]} events)"
+                      for lb in MS_STICK_SLIP)
+          + ", no row form and no torch draw of their rows", flush=True)
     if launches["overlap_add"] < len(cases):
         raise AssertionError("a render did not launch the overlap_add "
                              "kernel")
 
     # each render against the port's CPU render, then timing
+    ss_prof = {}
     for label, d, kw in cases:
         p = ms.MicrosoundParams.from_dict(d)
         cpu, _ = ms.render(p, device="cpu", **kw)
@@ -1939,6 +2167,14 @@ def microsound_all_path(dev, card: str):
               + f"launches {counts} {card}", flush=True)
         for name, t, c in (prof["top"][:3] if prof else []):
             print(f"profile:   {t:.3f} ms {c:.0f}x {name}", flush=True)
+        if label in MS_STICK_SLIP:
+            ss_prof[label] = (wall, prof)
+    print("stick-slip renders: " + "; ".join(
+        f"{lb} wall {w:.2f} ms, "
+        + (f"{pr['events_per_render']:.0f} device events, "
+           f"{pr['busy_ms_per_render']:.3f} ms busy" if pr else
+           "profile: no device event") for lb, (w, pr) in ss_prof.items())
+        + f" {card}", flush=True)
 
     # feedback and imprint: chunked bit-equal to whole on the card
     p = ms.MicrosoundParams.from_dict(dict(cases[0][1],

@@ -13,13 +13,25 @@ relies on, held bit for bit on the CPU, and the padding rows it is given.
 - ``_chunk_events`` gives a padded chunk's padding events a delay of L
   (one link a column, the kernel's cheapest); a waveguide render with
   them is bit-equal to one with the earlier fill of 0.
+- The stick-slip kernel's noise feed draws ``noise.normal`` in 32-bit
+  registers: ``_normal_kernel_model`` is its per-sample draw in NumPy
+  uint32 (the key once, the 12 streams, each hash's low 8 bits cleared so
+  that it converts to f32 exactly, the left-to-right f32 sum at scale
+  2**32, then 2**-32 and - 6), held bit-equal to ``noise.normal_np``, the
+  port's ``noise.normal`` and the JAX package's ``normal`` over seeds 0,
+  1, 12345, 2**31 - 1 and negative int32 seeds that wrap, and t up to
+  32 767.  ``stick_slip_noise_scan_plain`` is the two draws and
+  ``stick_slip_scan_plain``, and ``gen_stick_slip`` on the CPU renders
+  as it did from the two rows.
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from audio_suite_torch.models import microsound as ms
-from audio_suite_torch.ops import generators
+from audio_suite_torch.ops import generators, noise
+from audio_suite_tpu.ops import noise as j_noise
 
 torch.set_num_threads(1)
 
@@ -137,3 +149,96 @@ def test_padding_delay_renders_as_the_earlier_fill_of_zero(monkeypatch):
     got, _ = ms.render(p, device="cpu", event_chunk=32)
     assert float(want.abs().max()) > 0.5
     assert torch.equal(_bits(got), _bits(want))
+
+
+# ---- stick-slip: the kernel's own draw of its two noise rows
+
+_SS_SEEDS = np.array([0, 1, 12345, 2**31 - 1, -1, -5, -(2**31)], np.int32)
+_SS_ARGS = (0.9, 0.06, 0.75, 0.08)     # threshold, build, decay, noise_amt
+
+
+def _ss_times():
+    """Steps 0 to 32 767: the tile edges and a seeded sample between."""
+    edges = [0, 1, 2, 3, 4, 127, 128, 129, 2047, 2048, 16383, 32766, 32767]
+    rest = np.random.default_rng(5).integers(0, 32768, 400)
+    return np.unique(np.concatenate([edges, rest])).astype(np.int64)
+
+
+def _mix_u32(h):
+    h = h ^ (h >> np.uint32(16))
+    h = h * np.uint32(0x85EBCA6B)
+    h = h ^ (h >> np.uint32(13))
+    h = h * np.uint32(0xC2B2AE35)
+    return h ^ (h >> np.uint32(16))
+
+
+def _normal_kernel_model(seed, t, stream: int) -> np.ndarray:
+    """grain_scan.cu's ss_normal for every (seed, t) pair of the broadcast
+    seed [S, 1] x t [T], in NumPy uint32 arithmetic."""
+    with np.errstate(over="ignore"):
+        key = (np.asarray(seed).astype(np.uint32) * np.uint32(0x9E3779B9)
+               + np.asarray(t).astype(np.uint32) * np.uint32(0x85EBCA6B))
+        acc = None
+        for j in range(12):
+            c = ((stream * 12 + j + 1) & 0xFFFFFFFF) * 0xC2B2AE35 & 0xFFFFFFFF
+            h = _mix_u32(key + np.uint32(c)) & np.uint32(0xFFFFFF00)
+            term = h.astype(np.float32)          # exact: <= 24 bits set
+            acc = term if acc is None else (acc + term).astype(np.float32)
+    return (acc * np.float32(2.0 ** -32) - np.float32(6.0)).astype(np.float32)
+
+
+@pytest.mark.parametrize("stream", [generators.STREAM_BUILD,
+                                    generators.STREAM_OUT, 0, 11])
+def test_kernel_draw_model_bit_equal_to_normal(stream):
+    seed, t = _SS_SEEDS[:, None], _ss_times()
+    got = _normal_kernel_model(seed, t, stream)
+    assert np.array_equal(got.view(np.int32),
+                          noise.normal_np(seed, t, stream).view(np.int32))
+    port = noise.normal(torch.tensor(seed), torch.tensor(t), stream)
+    assert np.array_equal(got.view(np.int32), port.numpy().view(np.int32))
+    jax_ = np.asarray(j_noise.normal(jnp.asarray(seed), jnp.asarray(t),
+                                     stream))
+    assert np.array_equal(got.view(np.int32), jax_.view(np.int32))
+
+
+def test_kernel_draw_model_wraps_the_stream_like_normal():
+    """A stream whose 12 s + j + 1 passes 2**32 (the wrapper hands the
+    kernel streams mod 2**32)."""
+    seed, t = _SS_SEEDS[:, None], _ss_times()[:64]
+    stream = 2**32 - 1
+    port = noise.normal(torch.tensor(seed), torch.tensor(t), stream)
+    assert np.array_equal(_normal_kernel_model(seed, t, stream)
+                          .view(np.int32), port.numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("E,L", [(1, 1), (7, 130), (5, 300), (3, 1000)])
+def test_stick_slip_noise_plain_is_the_draws_and_the_row_form(E, L):
+    seed = torch.tensor(np.resize(_SS_SEEDS, E))
+    i = torch.arange(L)
+    rows = generators.stick_slip_scan_plain(
+        noise.normal(seed[:, None], i, generators.STREAM_BUILD),
+        noise.normal(seed[:, None], i, generators.STREAM_OUT), *_SS_ARGS)
+    got = generators.stick_slip_noise_scan_plain(seed, L, *_SS_ARGS)
+    assert torch.equal(_bits(got), _bits(rows))
+    # the dispatcher takes the plain path for a seed on the CPU
+    assert torch.equal(_bits(generators.stick_slip_noise_scan(
+        seed, L, *_SS_ARGS)), _bits(rows))
+    if L >= 300:
+        assert torch.count_nonzero(rows) > 0
+
+
+def test_gen_stick_slip_on_the_cpu_renders_as_from_the_rows():
+    """The generator as it was before it drew through the dispatcher: the
+    two rows, the row form, the Hann window and the mask."""
+    L = 2048
+    seed = torch.tensor(np.resize(_SS_SEEDS, 9))
+    n = torch.tensor([1500, 1, 2, 2048, 700, 1500, 1024, 3, 1999])
+    i = torch.arange(L)
+    bn = noise.normal(seed[:, None], i, generators.STREAM_BUILD)
+    on = noise.normal(seed[:, None], i, generators.STREAM_OUT)
+    xs = generators.stick_slip_scan(bn, on, *_SS_ARGS)
+    want = torch.where(i < n[:, None], xs * generators.hann_t(i, n[:, None]),
+                       0.0)
+    got = generators.gen_stick_slip(i, n, seed, *_SS_ARGS)
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.count_nonzero(want) > 0

@@ -523,11 +523,15 @@ def _scan_noise(E, L, seed0=12345):
             generators.chaos_y0(seeds[:, 0]))
 
 
-@pytest.mark.parametrize("E,L", [(156, 2048), (37, 1000), (1, 130),
-                                 (288, 4096), (288, 32768)])
+_SCAN_SHAPES = [(156, 2048), (37, 1000), (1, 130), (288, 4096),
+                (288, 32768), (1, 1), (5, 1), (289, 700)]
+
+
+@pytest.mark.parametrize("E,L", _SCAN_SHAPES)
 def test_stick_slip_and_chaos_kernels_bit_equal_to_plain(cuda, E, L):
     """The factory sizes (156 events of 2 048), a ragged warp and tile,
-    one event, a config-3 event count, and config 3's width."""
+    one event, a config-3 event count, config 3's width, one step, and
+    289 events (3 a block on 132 SMs: a last block of one)."""
     from audio_suite_torch.ops import generators
     bn, on, gates, y0 = _scan_noise(E, L)
     args = (0.9, 0.06, 0.75, 0.08)
@@ -536,7 +540,7 @@ def test_stick_slip_and_chaos_kernels_bit_equal_to_plain(cuda, E, L):
     got = generators.stick_slip_scan(bn.to(cuda), on.to(cuda), *args)
     torch.cuda.synchronize()
     assert kernels.stick_slip_scan.launches == n0 + 1
-    assert torch.count_nonzero(want) > 0
+    assert L < 8 or torch.count_nonzero(want) > 0
     assert torch.equal(got.cpu(), want)
     want = generators.chaos_scan_plain(gates, y0, 3.92, 0.35)
     n0 = kernels.chaos_scan.launches
@@ -544,6 +548,72 @@ def test_stick_slip_and_chaos_kernels_bit_equal_to_plain(cuda, E, L):
     torch.cuda.synchronize()
     assert kernels.chaos_scan.launches == n0 + 1
     assert torch.equal(got.cpu(), want)
+
+
+def _ss_seeds(E: int) -> torch.Tensor:
+    """Seeds 12345 + e, with 0, 2**31 - 1 and negative int32 seeds among
+    them where E allows."""
+    seeds = torch.arange(12345, 12345 + E, dtype=torch.int32)
+    special = torch.tensor([0, 2**31 - 1, -1, -(2**31), -5],
+                           dtype=torch.int32)
+    seeds[1:1 + min(E - 1, 5)] = special[:max(0, min(E - 1, 5))]
+    return seeds
+
+
+@pytest.mark.parametrize("E,L", _SCAN_SHAPES)
+def test_stick_slip_noise_kernel_bit_equal_to_plain(cuda, E, L):
+    """The stick-slip kernel drawing its own noise rows, one launch a
+    call, against its plain version (the two ``noise.normal`` draws and
+    the plain loop)."""
+    from audio_suite_torch.ops import generators
+    seeds = _ss_seeds(E)
+    args = (0.9, 0.06, 0.75, 0.08)
+    want = generators.stick_slip_noise_scan_plain(seeds, L, *args)
+    n0 = kernels.stick_slip_noise_scan.launches
+    got = generators.stick_slip_noise_scan(seeds.to(cuda), L, *args)
+    torch.cuda.synchronize()
+    assert kernels.stick_slip_noise_scan.launches == n0 + 1
+    assert L < 8 or torch.count_nonzero(want) > 0
+    assert torch.equal(got.cpu(), want)
+
+
+def _same_bits_or_nan(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """NaN where want is NaN (whatever its payload), every other bit equal."""
+    nan = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(got), nan)) and torch.equal(
+        got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+
+
+@pytest.mark.parametrize("thr,build,decay,nz", [
+    (0.9, 0.06, 0.75, 0.08),         # the render's
+    (0.05, 0.5, -0.75, 1.0),         # a negative decay, short sticks
+    (0.9, 0.06, 0.0, 0.08),          # decay 0: every slip ends at once
+    (0.0, 0.06, 1.0, 0.08),          # thr 0, decay 1: slips end on no decay
+    (float("inf"), 0.06, 0.75, 0.08),
+])
+def test_stick_slip_kernels_on_special_values(cuda, thr, build, decay, nz):
+    """Both feeds where the kernel's chain departs from the plain loop's
+    form (its back test is |force| < a limit from the decay, by the sign of
+    a difference): rows with +-inf, NaN, -0 and zeros, and decays of 0, 1
+    and below 0; the noise feed with the same scalars.  NaN where the plain
+    loop gives NaN, every other bit equal."""
+    from audio_suite_torch.ops import generators
+    bn, on, _, _ = _scan_noise(9, 600)
+    bn[1, 5], bn[2, 17], bn[3, 40] = float("inf"), -float("inf"), np.nan
+    on[4, 60], on[5, 7] = np.nan, float("inf")
+    bn[6] = 0.0
+    on[7, ::3] = -0.0
+    bn[8, 100:] = -1e30
+    args = (thr, build, decay, nz)
+    want = generators.stick_slip_scan_plain(bn, on, *args)
+    got = generators.stick_slip_scan(bn.to(cuda), on.to(cuda), *args)
+    torch.cuda.synchronize()
+    assert _same_bits_or_nan(got.cpu(), want)
+    seeds = _ss_seeds(9)
+    want = generators.stick_slip_noise_scan_plain(seeds, 600, *args)
+    got = generators.stick_slip_noise_scan(seeds.to(cuda), 600, *args)
+    torch.cuda.synchronize()
+    assert _same_bits_or_nan(got.cpu(), want)
 
 
 @pytest.mark.parametrize("E,L,lines,dlo,dhi", [
@@ -590,21 +660,49 @@ def test_grain_scan_kernels_reject_what_they_do_not_take(cuda):
         kernels.waveguide_scan(bn.to(cuda), torch.ones(4, 2, device=cuda),
                                torch.ones(4, 2, device=cuda),
                                torch.ones(4, 2, device=cuda))
+    seeds = _ss_seeds(4)
+    n0 = kernels.stick_slip_noise_scan.launches
+    with pytest.raises(ValueError):           # a seed tensor on the CPU
+        kernels.stick_slip_noise_scan(seeds, 64, 0.9, 0.06, 0.75, 0.08,
+                                      (2, 3))
+    with pytest.raises(ValueError):           # no step
+        kernels.stick_slip_noise_scan(seeds.to(cuda), 0, 0.9, 0.06, 0.75,
+                                      0.08, (2, 3))
+    with pytest.raises(TypeError):
+        kernels.stick_slip_noise_scan(seeds.to(cuda).long(), 64, 0.9, 0.06,
+                                      0.75, 0.08, (2, 3))
+    assert kernels.stick_slip_noise_scan.launches == n0
 
 
 @pytest.mark.parametrize("mode", ["Stick–slip friction", "Micro-chaos"])
-def test_scan_mode_renders_on_cuda_match_cpu(cuda, mode):
+def test_scan_mode_renders_on_cuda_match_cpu(cuda, mode, monkeypatch):
     """Factory settings but 1 s, with the waveguide on: every grain_scan
-    entry point launches once per chunk."""
+    entry point of the render launches once per chunk.  Stick-slip draws
+    its two noise rows in its kernel: no ``noise.normal`` call of their
+    streams, and no launch of the row form."""
+    from audio_suite_torch.ops import generators, noise
     p = ms.MicrosoundParams.from_dict(dict(gen_mode=mode, out_dur_s=1.0,
                                            wg_on=True))
     want, _ = ms.render(p, device="cpu")
-    n0 = {k: getattr(kernels, k).launches
-          for k in ("stick_slip_scan", "chaos_scan", "waveguide_scan")}
+    scans = ("stick_slip_noise_scan", "stick_slip_scan", "chaos_scan",
+             "waveguide_scan")
+    n0 = {k: getattr(kernels, k).launches for k in scans}
+    draws = []
+    normal = noise.normal
+
+    def spy(seed, idx, stream=0):
+        if stream in (generators.STREAM_BUILD, generators.STREAM_OUT):
+            draws.append(stream)
+        return normal(seed, idx, stream)
+
+    monkeypatch.setattr(noise, "normal", spy)
     got, meta = ms.render(p, device=cuda)
     torch.cuda.synchronize()
-    scan = "stick_slip_scan" if mode.startswith("Stick") else "chaos_scan"
+    scan = "stick_slip_noise_scan" if mode.startswith("Stick") \
+        else "chaos_scan"
     assert getattr(kernels, scan).launches == n0[scan] + 1
+    assert kernels.stick_slip_scan.launches == n0["stick_slip_scan"]
     assert kernels.waveguide_scan.launches == n0["waveguide_scan"] + 1
+    assert draws == []
     dev = (got.cpu().double() - want.double()).abs().max().item()
     assert 20 * np.log10(max(dev, 1e-300)) <= -100.0
