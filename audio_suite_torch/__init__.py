@@ -17,11 +17,15 @@ Ported so far:
   overlap-add -> ADSR, ER/IR convolution, stereo diffusion, soft clip,
   normalize, PCM16; its transforms and transcendentals evaluate in f64
   and round once, so the card's grains are the CPU's;
-- the tape engine's device render (the bench's chopped varispeed
-  configuration): host control tables from the shared C++ runtime ->
+- the tape engine (the bench's chopped varispeed configuration): the
+  device render (host control tables from the shared C++ runtime ->
   wow/flutter synthesis, speed runs, segmented fixed-point positions,
-  section read index, anti-click and splice gains -> the linear read (or
-  the 16-tap sinc read) -> clip, PCM16;
+  section read index, anti-click and splice gains -> the linear read or
+  the 16-tap sinc read -> clip, PCM16), the segment engine (the C++
+  per-sample trajectory -> the linear read), the scan engine (the
+  per-sample recurrence in ``kernels/tape_scan.cu``) and the performance
+  renderer (a ``TapeTrace`` of timed edits -> segment programs with their
+  state carried across them -> one device render a segment);
 - the scrub engine (the bench's multi-head gestural scrub): host gesture
   trace and program -> per-sample increments (detmath LFOs, counter-noise
   jitter) -> segmented fixed-point positions -> the wrap-around read of

@@ -97,7 +97,17 @@ _SIGNATURES = {
                           ctypes.c_int, _P], ctypes.c_int),
         "gs_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
+    "tape_scan": {
+        "ts_launch": ([_P, ctypes.c_int, _P, ctypes.c_longlong, _P, _P, _P,
+                       _P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                       ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_float, _P, _P, _P, _P, _P, _P, _P],
+                      ctypes.c_int),
+        "ts_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
 }
+TAPE_SCAN_MAX_TABLE_WORDS = 12288   # tape_scan.cu's kMaxTableWords
 MAX_HEADS = 3           # scrub_read_kernel's head slots (lerp_read.cu)
 
 
@@ -374,3 +384,64 @@ def waveguide_scan(x: torch.Tensor, d: torch.Tensor, g: torch.Tensor,
 
 
 waveguide_scan.launches = 0
+
+
+def tape_scan(audio: torch.Tensor, mod_q: torch.Tensor, starts: torch.Tensor,
+              ends: torch.Tensor, speeds_q: torch.Tensor,
+              reverse: torch.Tensor, boundaries: torch.Tensor,
+              splice_env: torch.Tensor, state: torch.Tensor, *,
+              anticlick_on: bool, smooth_len: int, strength: float,
+              splice_on: bool, inertia_on: bool, alpha_q: float
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``tape_scan.cu`` (its chain kernel, then its read kernel) on
+    the current stream and return the new (out f32 [T], final state int32
+    [5]) of the tape's scan engine from audio f32 [n], mod_q f32 [T],
+    starts / ends int32 [S], speeds_q f32 [S], reverse bool [S],
+    boundaries int32 [B], splice_env f32 [E] and the initial ``state``
+    int32 [5] (whole, frac, the speed's f32 bits, splice rem, splice
+    index), all contiguous on one CUDA device; 0 < n < 2**31, S >= 1 and
+    4 S + B <= TAPE_SCAN_MAX_TABLE_WORDS; the scalars are the TapeConsts
+    fields (f32 values)."""
+    S, B, E, T = (starts.shape[0], boundaries.shape[0], splice_env.shape[0],
+                  mod_q.shape[0])
+    n = audio.shape[0]
+    _scan_check("tape_scan",
+                (audio, mod_q, starts, ends, speeds_q, reverse, boundaries,
+                 splice_env, state),
+                (torch.float32, torch.float32, torch.int32, torch.int32,
+                 torch.float32, torch.bool, torch.int32, torch.float32,
+                 torch.int32),
+                ((n,), (T,), (S,), (S,), (S,), (S,), (B,), (E,), (5,)))
+    if not 0 < n < 2 ** 31:
+        raise ValueError(f"tape_scan kernel: audio length {n}")
+    if S < 1 or 4 * S + B > TAPE_SCAN_MAX_TABLE_WORDS:
+        raise ValueError(f"tape_scan kernel: {S} sections and {B} "
+                         f"boundaries (at least 1 section, 4 S + B <= "
+                         f"{TAPE_SCAN_MAX_TABLE_WORDS})")
+    dev = audio.device
+    out = torch.empty(T, dtype=torch.float32, device=dev)
+    idx0 = torch.empty(T, dtype=torch.int32, device=dev)
+    fr = torch.empty(T, dtype=torch.float32, device=dev)
+    gi = torch.empty(T, dtype=torch.int32, device=dev)
+    fin = torch.empty(5, dtype=torch.int32, device=dev)
+    inv_smooth = 1.0 / max(1, int(smooth_len))
+    lib = _lib("tape_scan")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.ts_launch(
+            audio.data_ptr(), n, mod_q.data_ptr(), T, starts.data_ptr(),
+            ends.data_ptr(), speeds_q.data_ptr(), reverse.data_ptr(), S,
+            boundaries.data_ptr(), B, splice_env.data_ptr(), E,
+            int(bool(anticlick_on)), int(smooth_len), float(strength),
+            inv_smooth, int(bool(splice_on)), int(bool(inertia_on)),
+            float(alpha_q), state.data_ptr(), idx0.data_ptr(),
+            fr.data_ptr(), gi.data_ptr(), out.data_ptr(), fin.data_ptr(),
+            stream)
+    if rc != 0:
+        raise RuntimeError("tape_scan kernel launch failed: "
+                           + lib.ts_error_string(rc).decode())
+    tape_scan.launches += 1
+    return out, fin
+
+
+tape_scan.launches = 0

@@ -1,6 +1,7 @@
 """The C++ host runtime — port of audio_suite_tpu/utils/native_rt.py's
-``tape_tables`` (the tape's control tables) and ``grid_placement`` (the
-grid's phase accumulator), with its own loader.
+``tape_tables`` (the tape's control tables), ``tape_trajectory`` (the
+segment engine's per-sample trajectory) and ``grid_placement`` (the grid's
+phase accumulator), with its own loader.
 
 ``native/ast_runtime.cpp`` is host code shared with the JAX package (read
 and compiled, never edited).  ``get_lib`` compiles it with g++ on first use
@@ -60,9 +61,9 @@ def _build() -> str:
 
 
 def get_lib() -> ctypes.CDLL:
-    """The loaded runtime with ``ast_tape_tables`` and
-    ``ast_grid_placement`` bound; built on first use.  Raises if it cannot
-    be built or loaded."""
+    """The loaded runtime with ``ast_tape_tables``,
+    ``ast_tape_trajectory`` and ``ast_grid_placement`` bound; built on
+    first use.  Raises if it cannot be built or loaded."""
     global _lib
     with _lock:
         if _lib is None:
@@ -72,7 +73,8 @@ def get_lib() -> ctypes.CDLL:
             def arr(dtype):
                 return np.ctypeslib.ndpointer(dtype, flags="C_CONTIGUOUS")
 
-            p_i64, p_f32 = arr(np.int64), arr(np.float32)
+            p_i64, p_i32, p_f32 = (arr(np.int64), arr(np.int32),
+                                   arr(np.float32))
             # native_rt.py:107-118 of the JAX package; after T and n: mod
             # ints / flts / phase0 and the sine coefficients
             lib.ast_tape_tables.argtypes = [
@@ -87,6 +89,19 @@ def get_lib() -> ctypes.CDLL:
                 p_i64, p_i64, p_i64,
                 p_i64, p_i64, p_i64]
             lib.ast_tape_tables.restype = i32
+            # native_rt.py:95-104 of the JAX package: T, n, mod_q, the
+            # section tables, nullable boundaries, the envelope, consts,
+            # the initial position, then the outputs
+            lib.ast_tape_trajectory.argtypes = [
+                i64, i64, p_f32,
+                p_i64, p_i64, p_f32, arr(np.uint8), i64,
+                ctypes.c_void_p, i64,
+                i64, p_f32,
+                i32, i64, f32,
+                i32, i32, f32, f32,
+                i64, i64,
+                p_i32, p_f32, p_f32, p_f32, p_i64]
+            lib.ast_tape_trajectory.restype = None
             # native_rt.py:88-93 of the JAX package: speed and resets are
             # nullable pointers with their lengths
             lib.ast_grid_placement.argtypes = [
@@ -178,3 +193,45 @@ def tape_tables(T: int, n: int, mod_consts, starts, ends, speeds_q, reverse,
         run_m=run[2][:nr].astype(np.int32),
         triggers=trg[:nt].astype(np.int32),
         final=final)
+
+
+def tape_trajectory(T: int, n: int, mod_q, starts, ends, speeds_q, reverse,
+                    boundaries, splice_env, consts, init_whole: int,
+                    init_frac: int) -> dict:
+    """The segment engine's per-sample control path of a T-sample render of
+    an n-sample tape from the position (``init_whole``, ``init_frac``):
+    idx0 i32, fr f32, the anti-click and splice gains ga / gs f32 (each
+    [T]) and the final playback state; the C twin of
+    ``ops/varispeed.tape_trajectory``."""
+    lib = get_lib()
+    mod_q = np.ascontiguousarray(mod_q, np.float32)
+    if len(mod_q) != T:
+        raise ValueError(f"tape_trajectory: {len(mod_q)} mod values for "
+                         f"{T} samples")
+    starts = np.ascontiguousarray(starts, np.int64)
+    ends = np.ascontiguousarray(ends, np.int64)
+    speeds_q = np.ascontiguousarray(speeds_q, np.float32)
+    reverse = np.ascontiguousarray(reverse, np.uint8)
+    bnd = np.ascontiguousarray(boundaries, np.int64)
+    env = np.ascontiguousarray(splice_env, np.float32)
+
+    idx0 = np.zeros(T, np.int32)
+    fr = np.zeros(T, np.float32)
+    ga = np.zeros(T, np.float32)
+    gs = np.zeros(T, np.float32)
+    fin = np.zeros(5, np.int64)
+    lib.ast_tape_trajectory(
+        int(T), int(n), mod_q, starts, ends, speeds_q, reverse, len(starts),
+        bnd.ctypes.data if len(bnd) else None, len(bnd),
+        len(env), env,
+        1 if consts.anticlick_on else 0, int(consts.smooth_len),
+        np.float32(consts.anticlick_strength),
+        1 if consts.splice_on else 0, 1 if consts.inertia_on else 0,
+        np.float32(consts.alpha_q), np.float32(consts.initial_speed_q),
+        int(init_whole), int(init_frac),
+        idx0, fr, ga, gs, fin)
+    final = dict(whole=int(fin[0]), frac=int(fin[1]),
+                 speed=float(np.float32(fin[2]
+                                        * np.float32(1.0 / (1 << 22)))),
+                 splice_rem=int(fin[3]), splice_idx=int(fin[4]))
+    return dict(idx0=idx0, fr=fr, ga=ga, gs=gs, final=final)

@@ -43,7 +43,13 @@ phases; any failure raises and the exit code is non-zero.  The paths:
   settings (warps, partial lock, resonator and waveguide, multi-band
   unfold, feedback and imprint, breakpoint lanes), and bench config 3 at
   full width through the whole warp chain and in stick-slip mode,
-  rendered through ``models.microsound.render``.
+  rendered through ``models.microsound.render``;
+- the tape's other paths: bench config 1 with a performance (the 180 s
+  tape with tests/test_tape_trace.py's dense trace, its times x60: speed,
+  reverse, age, a marker added and removed, inertia, a splice gap, a seek,
+  anti-click and a retime; 13 segments) through
+  ``models.tape.render_tape_trace``, and config 1 through
+  ``render_tape``'s segment and scan engines.
 
 Phases:
 
@@ -141,7 +147,29 @@ Phases:
    stick-slip renders' also on a line of their own; feedback and
    imprint in chunks of 32 bit-equal to the whole render; the
    ``microsound_chaos`` and ``microsound_cepstral`` golden fingerprints
-   (tests/test_goldens.py) from the card's renders.
+   (tests/test_goldens.py) from the card's renders;
+10. the tape's other paths: config 1 with a performance rendered once
+   through ``render_tape_trace`` with every launch counted (one
+   ``lerp_read`` a segment, 13); output checks; the render bit-equal to
+   one made with the plain read; its wall split into the host
+   ``build_trace_programs`` and the segments' device window, and its
+   realtime factor; the trace on the card within -120 dBFS of the CPU at
+   the tests' size (its parity case and its splice-freeze case, which
+   takes the piece path); the segment engine at config 1's full size
+   within -120 dBFS of the device engine, one ``lerp_read``, and
+   bit-equal to itself with the plain read; the scan kernel
+   (``kernels/tape_scan.cu``) bit-equal to its plain version at 4 000
+   frames of config 1's smoke tape with and without inertia, final state
+   equal, at config 1's full size through ``render_tape`` (one launch)
+   within -120 dBFS of the segment engine with its final whole, frac and
+   speed equal, and bit-equal to its plain version, all five state words
+   too, on windows of config 1's full-size program across each section
+   change and the wrap, each from the C++ trajectory's state there
+   (``scan_windows``; and on a variant with inertia on and section 0
+   reversed, whose reads reach (-1, 0)); its time beside its function's
+   bound (bytes and f32 operations) and this design's own limits, its
+   dependency chain and issue count from its SASS (``tape_chain_sass``),
+   and the plain version's time a sample.
 
 Every kernel's launch count is set to 0 just before a path is driven and
 read just after it.  A kernel is timed twice.  Warm (its ``ms``, the
@@ -186,11 +214,13 @@ SLEEP_CYCLES = 10_000_000  # ~5 ms at the H100's clock: longer than the host
 FLUSH_BYTES = 256 << 20    # read before each L2-flushed call (L2: 50 MB)
 HBM_BYTES_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOP_S = 67e12         # H100 SXM f32 rate outside the tensor cores
-KERNELS = ("overlap_add", "lerp_read", "grain_scan")  # one nvcc each
+KERNELS = ("overlap_add", "lerp_read", "grain_scan", "tape_scan")  # one
+#                                                      nvcc each
 # launch-counting wrappers: lerp_read.cu's two kernels and grain_scan.cu's
 # four entry points count apart
 WRAPPERS = ("overlap_add", "lerp_read", "scrub_read", "stick_slip_scan",
-            "stick_slip_noise_scan", "chaos_scan", "waveguide_scan")
+            "stick_slip_noise_scan", "chaos_scan", "waveguide_scan",
+            "tape_scan")
 TAPE_SECONDS = 180.0   # bench config 1's tape and target length
 TAPE_FRAMES = 8745204  # its output frames after the retime
 PL_SECONDS = 8.0       # bench config 4's render length
@@ -2219,6 +2249,512 @@ MS_GOLDENS = {
 }
 
 
+# ---- phase 10: the tape's other paths: the performance renderer, the
+# segment engine and the scan engine
+
+TRACE_SR = 8000         # tests/test_tape_trace.py's rate
+TRACE_SEGMENTS = 13     # the config-1 trace's segments
+TIMED_TRACES = 3        # timed config-1 trace renders (each ~2 s)
+SCAN_PLAIN_FRAMES = 4000  # the scan's plain loop: ~0.1 ms of host time a step
+TIMED_SCANS = 3         # timed full-size scan launches (each ~0.7 s)
+SCAN_WINDOW = 2000      # frames of a full-size window held against the
+#                         plain loop (~10-35 us of host time a step)
+# f32 operations a sample: the lerp's 4, the two gains' 2 and the clip's
+# 2, the increment's 2 multiplies; inertia 5 more
+TAPE_SCAN_FLOPS = {False: 10, True: 15}
+# SASS opcodes that write no register
+SASS_NO_DST = ("ST", "RED", "BRA", "EXIT", "BAR", "WARPSYNC", "BSSY",
+               "BSYNC", "NOP", "MEMBAR", "CALL", "RET", "DEPBAR", "YIELD")
+
+
+def config1_trace(n: int):
+    """Bench config 1 with a performance: tests/test_tape_trace.py's
+    _perf_trace with its times x60 and the marker at n // 2."""
+    from audio_suite_torch.models import tape
+    tr = tape.TapeTrace()
+    for t, op, kw in (
+            (12.0, "set_speed", dict(section=0, value=1.7)),
+            (27.0, "set_reverse", dict(section=1, value=True)),
+            (42.0, "set_age", dict(value=95)),
+            (54.0, "add_marker", dict(sample=n // 2)),
+            (66.0, "set_inertia", dict(value=True)),
+            (69.0, "set_inertia_amount", dict(value=80)),
+            (84.0, "set_splice", dict(value=False)),
+            (93.0, "set_splice", dict(value=True)),
+            (108.0, "seek", dict(sample=100)),
+            (123.0, "set_anticlick_amount", dict(value=90)),
+            (138.0, "remove_marker", dict(sample=n // 2)),
+            (156.0, "retime", dict(target=180.0))):
+        tr.add(t, op, **kw)
+    return tr
+
+
+def small_traces():
+    """The card-against-CPU cases at tests/test_tape_trace.py's size (SR
+    8 000): its parity case (_perf_trace over 3 s of a 2 s tape) and its
+    splice-freeze case (splice off 100 samples in, on 60 samples later: a
+    paused envelope resumed, the piece path).  Label -> (audio, params,
+    trace, frames)."""
+    from audio_suite_torch.models import tape
+    sr = TRACE_SR
+
+    def tape_audio(n):
+        rng = np.random.default_rng(3)
+        t = np.arange(n) / sr
+        return np.asarray(0.5 * np.sin(2 * np.pi * 180 * t)
+                          + 0.2 * np.sin(2 * np.pi * 733 * t)
+                          + 0.05 * rng.standard_normal(n), np.float32)
+
+    perf = tape.TapeTrace()
+    for t, op, kw in (
+            (0.20, "set_speed", dict(section=0, value=1.7)),
+            (0.45, "set_reverse", dict(section=1, value=True)),
+            (0.70, "set_age", dict(value=95)),
+            (0.90, "add_marker", dict(sample=sr // 2)),
+            (1.10, "set_inertia", dict(value=True)),
+            (1.15, "set_inertia_amount", dict(value=80)),
+            (1.40, "set_splice", dict(value=False)),
+            (1.55, "set_splice", dict(value=True)),
+            (1.80, "seek", dict(sample=100)),
+            (2.05, "set_anticlick_amount", dict(value=90)),
+            (2.30, "remove_marker", dict(sample=sr // 2)),
+            (2.60, "retime", dict(target=1.2))):
+        perf.add(t, op, **kw)
+    freeze = tape.TapeTrace()
+    freeze.add(100 / sr, "set_splice", value=False)
+    freeze.add(160 / sr, "set_splice", value=True)
+    return {
+        "perf": (tape_audio(2 * sr), tape.TapeParams(
+            sample_rate=sr, markers=[3000, 9000],
+            section_speeds=[1.0, 0.5, 2.0],
+            section_reverse=[False, False, True], tape_age=40),
+            perf, 3 * sr),
+        "splice freeze": (tape_audio(sr), tape.TapeParams(
+            sample_rate=sr, markers=[sr // 2], section_speeds=[1.0, 1.0],
+            tape_age=0, anticlick_enabled=False), freeze, 600)}
+
+
+def tape_state(st) -> tuple:
+    """A scan TapeState's (whole, frac, speed, rem, sidx) on the host."""
+    return (int(st.whole), int(st.frac), float(st.speed),
+            int(st.splice_rem), int(st.splice_idx))
+
+
+def _sass_regs(operand: str) -> list:
+    """The registers an SASS operand names (a .64 operand: its pair)."""
+    regs = []
+    for m in re.finditer(r"(?<![\w.])(U?R\d+|U?P\d)(\.64)?", operand):
+        regs.append(m.group(1))
+        if m.group(2):
+            head = m.group(1).rstrip("0123456789")
+            regs.append(head + str(int(m.group(1)[len(head):]) + 1))
+    return regs
+
+
+def _sass_pred(operand: str) -> bool:
+    return re.fullmatch(r"!?U?P[T\d]", operand) is not None
+
+
+def tape_chain_sass(so: str, splice: bool, inertia: bool) -> dict:
+    """The dependency chain of one step of ``tape_chain_kernel<splice,
+    inertia>`` from ``cuobjdump -sass`` of the built library.  The step
+    loop is the innermost loop that holds the shuffles (one a step,
+    unrolled); the common step runs from its shuffle to its first
+    conditional branch, which skips the searching ``general()`` block to
+    the step's tail.  Along that path every instruction waits on the
+    registers and predicates it reads (a predicated write also on the
+    register's old value), and every instruction after a branch on the
+    branch (the warp issues in order and predicts nothing).  The longest
+    path, in instructions, through several passes of the loop body, a
+    step: ``chain_ops``; the path's instructions a step:
+    ``path_instructions``.  Of several such loops (nvcc may version one)
+    the one with the shorter chain."""
+    from audio_suite_torch import kernels
+    cuobj = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobj, "-sass", so], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    key = f"tape_chain_kernelILb{int(splice)}ELb{int(inertia)}E"
+    body = next(f for f in re.split(r"\n\s*Function : ", sass)
+                if key in f.split("\n", 1)[0])
+    pat = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?(U?P[T\d]+)\s+)?"
+                     r"([A-Z][\w.]*)([^;]*);")
+    ins = [(int(a, 16), "" if g in ("PT", "UPT") else g, op,
+            [o.strip() for o in rest.split(",")] if rest.strip() else [])
+           for a, g, op, rest in pat.findall(body)]
+    at = {a: k for k, (a, *_) in enumerate(ins)}
+    shfl = [a for a, _, op, _ in ins if op.startswith("SHFL")]
+
+    def target(op, ops):
+        m = re.fullmatch(r"0x([0-9a-f]+)", ops[-1]) \
+            if op.startswith("BRA") and ops else None
+        return int(m.group(1), 16) if m else None
+    loops = [(sum(t <= x <= a for x in shfl), t, a)
+             for a, _, op, ops in ins
+             for t in [target(op, ops)] if t is not None and t < a]
+    inner = [(c, t, a) for c, t, a in loops if c and not any(
+        c2 and t <= t2 and a2 <= a and (t2, a2) != (t, a)
+        for c2, t2, a2 in loops)]
+    found = []
+    for steps, top, edge in inner:
+        marks = [x for x in shfl if top <= x <= edge]
+        path, k = [], at[top]
+        while ins[k][0] < edge:
+            a, g, op, ops = ins[k]
+            path.append(ins[k])
+            t = target(op, ops)
+            if t is not None and (g or any(map(_sass_pred, ops[:-1]))):
+                if not a < t <= min([x for x in marks if x > a] + [edge]):
+                    raise AssertionError(f"{key}: the branch at {a:#x} to "
+                                         f"{t:#x} leaves its step")
+                k = at[t]
+            else:
+                k += 1
+        depth, ctrl, last = {}, 0, 0
+        for _ in range(8):
+            first = last
+            for a, g, op, ops in path:
+                base = op.split(".")[0]
+                nd = 0 if base.startswith(SASS_NO_DST) else (
+                    2 if len(ops) > 1 and (_sass_pred(ops[0])
+                                           or _sass_pred(ops[1])) else 1)
+                dsts = [r for o in ops[:nd] for r in _sass_regs(o)]
+                srcs = [r for o in ops[nd:] for r in _sass_regs(o)]
+                if g:
+                    srcs += [g] + dsts
+                d = max([depth.get(r, 0) for r in srcs] + [ctrl]) + 1
+                depth.update((r, d) for r in dsts)
+                if base == "BRA":
+                    ctrl = d
+            last = max(list(depth.values()) + [ctrl])
+        found.append({"chain_ops": (last - first) / steps,
+                      "path_instructions": len(path) / steps,
+                      "unrolled_steps": steps})
+    if not found:
+        raise AssertionError(f"{key}: no step loop in its SASS")
+    return min(found, key=lambda f: f["chain_ops"])
+
+
+def scan_windows(label: str, prog: dict, mod_q: np.ndarray,
+                 y_full: np.ndarray = None) -> tuple[float, dict]:
+    """The scan kernel bit-equal to its plain loop, all five state words
+    too, on windows of SCAN_WINDOW frames of a full-size program: one
+    centred on each visit's first frame (each section change, the wrap)
+    of the program's C++ tables, each window started from the state the
+    C++ trajectory gives at its first frame.  With ``y_full`` (the
+    full-size launch of the main path) each window must also give that
+    launch's samples.  Returns (max |err|, what the windows held: the
+    section changes by section entered, the wraps, the splice triggers,
+    the reversed reads and those of them in (-1, 0))."""
+    from audio_suite_torch.models import tape
+    from audio_suite_torch.ops import varispeed
+    from audio_suite_torch.utils import native_rt
+    T, n = len(mod_q), int(prog["audio"].shape[0])
+    consts, dev = prog["consts"], prog["audio"].device
+    tab = tape.program_tables(prog)
+    host = (prog["starts"], prog["ends"], prog["speeds_q"], prog["reverse"],
+            prog["boundaries"], prog["splice_env"], consts, 0, 0)
+    traj = native_rt.tape_trajectory(T, n, mod_q, *host)
+    ins = tape.scan_inputs(prog, mod_q)
+    vs = [int(v) for v in tab["visit_start"]]
+    vsec = [int(v) for v in tab["visit_sec"]]
+    wins = []
+    for v in vs:
+        a = min(max(v - SCAN_WINDOW // 2, 0), max(T - SCAN_WINDOW, 0))
+        if wins and a < wins[-1][1]:
+            a = wins[-1][1]
+        if a < T:
+            wins.append((a, min(a + SCAN_WINDOW, T)))
+    held = np.zeros(T, bool)
+    err = 0.0
+    for a, b in wins:
+        held[a:b] = True
+        st = None
+        if a > 0:
+            fin = native_rt.tape_trajectory(a, n, mod_q[:a], *host)["final"]
+            st = varispeed.TapeState(*(
+                torch.tensor(fin[k], dtype=torch.float32 if k == "speed"
+                             else torch.int32, device=dev)
+                for k in ("whole", "frac", "speed", "splice_rem",
+                          "splice_idx")))
+        w_ins = (ins[0], ins[1][a:b]) + ins[2:]
+        want, st_w = varispeed.tape_scan_render_plain(*w_ins, consts, st)
+        got, st_g = varispeed.tape_scan_render(*w_ins, consts, st)
+        err = max(err, (got - want).abs().max().item())
+        if not torch.equal(got, want) or tape_state(st_g) != \
+                tape_state(st_w):
+            raise AssertionError(
+                f"tape_scan kernel differs from its plain version ({label}, "
+                f"frames {a}-{b}): max |err| {err}, states "
+                f"{tape_state(st_g)} / {tape_state(st_w)}")
+        if y_full is not None and not np.array_equal(got.cpu().numpy(),
+                                                     y_full[a:b]):
+            raise AssertionError(f"tape_scan window {a}-{b} ({label}) "
+                                 "differs from the full-size launch")
+    rev = np.asarray(prog["reverse"], bool)
+    vid = np.searchsorted(np.asarray(vs), np.arange(T), side="right") - 1
+    rev_read = held & rev[np.asarray(vsec)[vid]]
+    cover = {
+        "windows": len(wins), "frames": int(held.sum()),
+        "sections_entered": sorted({vsec[k] for k in range(1, len(vs))
+                                    if held[vs[k]]}),
+        "wraps": sum(1 for k in range(1, len(vs))
+                     if held[vs[k]] and vsec[k] <= vsec[k - 1]),
+        "splice_triggers": int(sum(held[t] for t in tab["triggers"])),
+        "reversed_reads": int(rev_read.sum()),
+        "reversed_reads_in_(-1,0)": int((rev_read & (traj["fr"] < 0)).sum())}
+    return err, cover
+
+
+def tape_other_path(dev, card: str):
+    """Phase 10: the performance renderer at bench config 1's full size, the
+    trace on the card against the CPU, the segment engine and the scan
+    kernel; returns (lerp_read launches by path, the tape_scan row)."""
+    from audio_suite_torch import kernels
+    from audio_suite_torch.models import tape
+    from audio_suite_torch.ops import lerp_read as lr
+    from audio_suite_torch.ops import varispeed
+    from audio_suite_torch.utils import native_rt
+
+    t_phase = time.perf_counter()
+    audio, p, frames = config1(TAPE_SECONDS)
+    sr, n = p.sample_rate, len(audio)
+    adev = torch.as_tensor(audio, device=dev)
+    tr = config1_trace(n)
+
+    # the trace, the main path: one render, every launch counted; then
+    # TIMED_TRACES renders timed in render_tape_trace's two halves, the
+    # host build_trace_programs and the segments' renders with the pull;
+    # the render of the median wall gives the split
+    reset_counts()
+    y = tape.render_tape_trace(adev, p, tr, device=dev)
+    trace_launches = read_counts()
+    env_len = p.splice_env_len
+    timed = []
+    for _ in range(TIMED_TRACES):
+        t0 = time.perf_counter()
+        segs = tape.build_trace_programs(adev, p, tr, device=dev)
+        t1 = time.perf_counter()
+        tape.render_trace_segments(segs, env_len).cpu().numpy()
+        t2 = time.perf_counter()
+        timed.append((t2 - t0, t1 - t0, t2 - t1))
+    wall, build_s, rest_s = sorted(timed)[len(timed) // 2]
+    t0 = time.perf_counter()
+    tape.wow_flutter_mod(frames, sr, p.tape_age)  # the segments' curves'
+    curve_s = time.perf_counter() - t0            # work, in one call
+    if len(segs) != TRACE_SEGMENTS:
+        raise AssertionError(f"the config-1 trace has {len(segs)} segments")
+    if trace_launches["lerp_read"] != len(segs) or any(
+            v for k, v in trace_launches.items() if k != "lerp_read"):
+        raise AssertionError(f"the trace's launches {trace_launches}: one "
+                             f"lerp_read a segment ({len(segs)})")
+    if y.shape != (frames,) or y.dtype != np.float32:
+        raise AssertionError(f"trace render gave {y.shape} {y.dtype}")
+    if not np.isfinite(y).all() or np.abs(y).max() > 1.0:
+        raise AssertionError("trace render: non-finite or unclipped samples")
+    peak = float(np.abs(y).max())
+    if peak < 0.3:
+        raise AssertionError(f"trace render is near silent: peak {peak}")
+    device_ms = cuda_ms(lambda: tape.render_trace_segments(segs, env_len), 3)
+    y_kernel = tape.render_trace_segments(segs, env_len)
+    with mock.patch.object(varispeed, "lerp_read", lr.lerp_read_plain):
+        y_plain = tape.render_trace_segments(segs, env_len)
+    if not (torch.equal(y_kernel, y_plain)
+            and np.array_equal(y_kernel.cpu().numpy(), y)):
+        raise AssertionError("trace render with the kernel differs from the "
+                             "render with the plain read")
+    pieces = tape._splice_pieces(segs, env_len)
+    print(f"trace: config 1 with a performance, {len(tr.events)} events -> "
+          f"{len(segs)} segments ({', '.join(str(s['t1'] - s['t0']) for s in segs)} "
+          f"frames), {len(pieces)} splice pieces; T {frames} f32 peak "
+          f"{peak:.4f}; launches {trace_launches}; bit-equal with the plain "
+          f"read; render wall median {wall * 1e3:.1f} ms of {TIMED_TRACES} "
+          f"({', '.join(f'{w[0] * 1e3:.1f}' for w in timed)}) = host "
+          f"build_trace_programs {build_s * 1e3:.1f} ms (the host "
+          f"wow/flutter curve over the {frames} frames alone "
+          f"{curve_s * 1e3:.1f} ms) + the segments' renders and the pull "
+          f"{rest_s * 1e3:.1f} ms (their device window {device_ms:.3f} ms); "
+          f"realtime x{frames / sr / wall:.1f} {card}", flush=True)
+
+    # the trace on the card against the CPU at the tests' size
+    for label, (a, pp, ttr, nf) in small_traces().items():
+        yg = tape.render_tape_trace(a, pp, ttr, nf, device=dev)
+        yc = tape.render_tape_trace(a, pp, ttr, nf, device="cpu")
+        d = np.abs(yg.astype(np.float64) - yc).max()
+        db = 20 * np.log10(max(d, 1e-300))
+        if db > -120.0:
+            raise AssertionError(f"trace {label} on the card is {db:.1f} "
+                                 "dBFS from the CPU")
+        print(f"trace {label} (SR {TRACE_SR}, {nf} frames): card vs CPU "
+              f"{db:.2f} dBFS (bit-equal: {bool(np.array_equal(yg, yc))})",
+              flush=True)
+
+    # the segment engine at full size, its launches counted, against the
+    # device engine, and against itself with the plain read (mocked as in
+    # phase 4) on the same inputs
+    y_dev = tape.render_tape(adev, p, device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    y_seg = tape.render_tape(adev, p, device=dev, engine="segment")
+    seg_wall = time.perf_counter() - t0
+    seg_launches = read_counts()
+    t0 = time.perf_counter()
+    full = tape.build_tape_program(adev, p, frames, device=dev)
+    mod_q = tape.wow_flutter_mod(frames, sr, p.tape_age)
+    seg_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native_rt.tape_trajectory(
+        frames, n, mod_q, full["starts"], full["ends"], full["speeds_q"],
+        full["reverse"], full["boundaries"], full["splice_env"],
+        full["consts"], 0, 0)
+    seg_traj = time.perf_counter() - t0
+    if seg_launches["lerp_read"] != 1 or any(
+            v for k, v in seg_launches.items() if k != "lerp_read"):
+        raise AssertionError(f"the segment engine's launches {seg_launches}")
+    db = 20 * np.log10(max(np.abs(y_seg.astype(np.float64) - y_dev).max(),
+                           1e-300))
+    if db > -120.0:
+        raise AssertionError(f"segment engine {db:.1f} dBFS from the device "
+                             "engine")
+    sec_args = (mod_q, full["starts"], full["ends"], full["speeds_q"],
+                full["reverse"], full["boundaries"], full["splice_env"],
+                full["consts"])
+    with mock.patch.object(varispeed, "lerp_read", lr.lerp_read_plain):
+        y_seg_plain, _ = varispeed.tape_segment_render(adev, *sec_args)
+    if not np.array_equal(y_seg_plain.cpu().numpy(), y_seg):
+        raise AssertionError("segment engine with the kernel differs from "
+                             "the render with the plain read")
+    print(f"segment engine: T {frames}, {db:.2f} dBFS from the device "
+          f"engine; bit-equal with the plain read; launches {seg_launches}; "
+          f"wall {seg_wall * 1e3:.1f} ms: the program with its host "
+          f"wow/flutter curve {seg_build * 1e3:.1f} ms, the C++ trajectory "
+          f"{seg_traj * 1e3:.1f} ms, the rest (upload, read, pull) "
+          f"{(seg_wall - seg_build - seg_traj) * 1e3:.1f} ms {card}",
+          flush=True)
+
+    # the scan kernel against its plain version at the smoke tape's start
+    a_s, p_s, _ = config1(4.0)
+    err, plain_s, small_ms = 0.0, {}, {}
+    for inertia in (True, False):
+        p_s.inertia_enabled = inertia
+        prog = tape.build_tape_program(a_s, p_s, SCAN_PLAIN_FRAMES,
+                                       device=dev)
+        ins = tape.scan_inputs(prog, tape.wow_flutter_mod(
+            SCAN_PLAIN_FRAMES, sr, p_s.tape_age))
+        t0 = time.perf_counter()
+        want, st_w = varispeed.tape_scan_render_plain(*ins, prog["consts"])
+        torch.cuda.synchronize()
+        plain_s[inertia] = time.perf_counter() - t0
+        got, st_g = varispeed.tape_scan_render(*ins, prog["consts"])
+        torch.cuda.synchronize()
+        err = max(err, (got - want).abs().max().item())
+        if not torch.equal(got, want) or tape_state(st_g) != tape_state(st_w):
+            raise AssertionError(f"tape_scan kernel differs from its plain "
+                                 f"version (inertia {inertia}): max |err| "
+                                 f"{err}, states {tape_state(st_g)} / "
+                                 f"{tape_state(st_w)}")
+        small_ms[inertia] = cuda_ms(
+            lambda: varispeed.tape_scan_render(*ins, prog["consts"]), 3)
+        print(f"tape_scan (config 1's smoke tape, {SCAN_PLAIN_FRAMES} "
+              f"frames, inertia {inertia}): bit-equal to plain, final state "
+              f"{tape_state(st_g)} equal; kernel {small_ms[inertia]:.4f} ms, "
+              f"plain {plain_s[inertia] * 1e3:.1f} ms "
+              f"({plain_s[inertia] / SCAN_PLAIN_FRAMES * 1e6:.1f} us a "
+              f"sample) {card}", flush=True)
+
+    # the scan engine at full size: the main path's launch, against the
+    # segment engine, with the final state; the kernel against its plain
+    # loop on windows across every section change of config 1's program
+    # and of a variant with inertia on and section 0 reversed and slowed
+    # (its last frame read in (-1, 0)); then its time and bounds
+    reset_counts()
+    y_scan = tape.render_tape(adev, p, device=dev, engine="scan")
+    scan_launches = read_counts()
+    if scan_launches["tape_scan"] != 1 or any(
+            v for k, v in scan_launches.items() if k != "tape_scan"):
+        raise AssertionError(f"the scan engine's launches {scan_launches}")
+    db = 20 * np.log10(max(np.abs(y_scan.astype(np.float64) - y_seg).max(),
+                           1e-300))
+    if db > -120.0:
+        raise AssertionError(f"scan engine {db:.1f} dBFS from the segment "
+                             "engine")
+    ins = tape.scan_inputs(full, mod_q)
+    _, st = varispeed.tape_scan_render(*ins, full["consts"])
+    _, fin = varispeed.tape_segment_render(adev, *sec_args)
+    if tape_state(st)[:3] != (fin["whole"], fin["frac"], fin["speed"]):
+        raise AssertionError(f"scan final state {tape_state(st)}, segment "
+                             f"engine's {fin}")
+    p_b = tape.TapeParams.from_snapshot(p.snapshot())
+    p_b.section_reverse = [True] + list(p.section_reverse[1:])
+    p_b.section_speeds = [0.5] + list(p.section_speeds[1:])
+    p_b.inertia_enabled, p_b.inertia_amount = True, 80
+    t0 = time.perf_counter()
+    covers = {}
+    for label, pp, yf in (("config 1", p, y_scan),
+                          ("inertia, section 0 reversed", p_b, None)):
+        e, covers[label] = scan_windows(
+            label, tape.build_tape_program(adev, pp, frames, device=dev),
+            mod_q, yf)
+        err = max(err, e)
+    win_s = time.perf_counter() - t0
+    c1, cb = covers["config 1"], covers["inertia, section 0 reversed"]
+    revs = {k for k, r in enumerate(p.section_reverse) if r}
+    if not (revs <= set(c1["sections_entered"]) and c1["wraps"]
+            and c1["splice_triggers"] and cb["reversed_reads_in_(-1,0)"]
+            and 1 in cb["sections_entered"]):
+        raise AssertionError(f"the scan windows miss a case: {covers}")
+    print(f"tape_scan windows (config 1's full-size program, T {frames}, "
+          f"{SCAN_WINDOW} frames each, from the C++ trajectory's state): "
+          f"bit-equal to plain, all five state words equal, and equal to "
+          f"the full-size launch's samples: {json.dumps(c1)}; with inertia "
+          f"and section 0 reversed at speed 0.5: {json.dumps(cb)}; "
+          f"{win_s:.1f} s", flush=True)
+    scan_ms = cuda_ms(lambda: varispeed.tape_scan_render(
+        *ins, full["consts"]), TIMED_SCANS)
+    inertia = full["consts"].inertia_on
+    splice = full["consts"].splice_on and len(full["boundaries"]) > 0
+    sm_mhz = float(smi("clocks.max.sm").split()[0])
+    S, B = len(full["starts"]), len(full["boundaries"])
+    nbytes = 4 * (n + 2 * frames + 4 * S + B + len(full["splice_env"]) + 10)
+    bound, bound_by = bound_ms(nbytes, TAPE_SCAN_FLOPS[inertia] * frames)
+    sass = tape_chain_sass(kernels.build("tape_scan"), splice, inertia)
+    chain_ms = sass["chain_ops"] * 4 * frames / (sm_mhz * 1e3)
+    issue_ms = sass["path_instructions"] * frames / (sm_mhz * 1e3)
+    print(f"tape_scan (config 1, T {frames}, inertia {inertia}): {db:.2f} "
+          f"dBFS from the segment engine, final whole/frac/speed equal "
+          f"{tape_state(st)[:3]}; launches {scan_launches}; kernel "
+          f"{scan_ms:.2f} ms ({scan_ms / frames * 1e6:.2f} ns a step, "
+          f"{scan_ms * sm_mhz * 1e3 / frames:.0f} cycles at {sm_mhz:.0f} "
+          f"MHz); the function's bound {bound:.4f} ms by {bound_by} "
+          f"({nbytes / 1e6:.2f} MB), {bound / scan_ms:.4%} of it reached; "
+          f"this one-warp design's own limits, from its SASS "
+          f"(tape_chain_kernel<{int(splice)},{int(inertia)}>, "
+          f"{sass['unrolled_steps']} steps unrolled): dependency chain "
+          f"{chain_ms:.2f} ms ({sass['chain_ops']:g} dependent instructions "
+          f"a common step x 4 cycles), {chain_ms / scan_ms:.1%} of it "
+          f"reached; issue {issue_ms:.2f} ms "
+          f"({sass['path_instructions']:g} instructions a common step at "
+          f"one a cycle); plain "
+          f"{plain_s[True] / SCAN_PLAIN_FRAMES * 1e6:.1f} us a sample "
+          f"(inertia on, {SCAN_PLAIN_FRAMES} frames) {card}", flush=True)
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    row = {"name": "tape_scan", "route": "cuda",
+           "source": "audio_suite_torch/kernels/tape_scan.cu",
+           "replaces": "audio_suite_tpu/ops/varispeed.py:126 (tape_scan_"
+                       "render's lax.scan; no Pallas kernel)",
+           "launches": scan_launches["tape_scan"], "max_abs_err": err,
+           "ms": scan_ms, "plain_ms": plain_s[True] * 1e3,
+           "plain_frames": SCAN_PLAIN_FRAMES,
+           "ms_at_plain_frames": small_ms[True],
+           "bound_ms": bound, "bound_by": bound_by,
+           "chain_bound_ms": chain_ms, "chain_ops_a_step": sass["chain_ops"],
+           "issue_bound_ms": issue_ms,
+           "windows": covers, "library_ms": None}
+    by_path = {"trace": trace_launches["lerp_read"],
+               "segment": seg_launches["lerp_read"]}
+    return by_path, row
+
+
 def main() -> int:
     # ---- 1. probe
     if not torch.cuda.is_available():
@@ -2265,7 +2801,12 @@ def main() -> int:
                                   "microsound_all_paths": ms_oa}
     oa_row["launches"] += pl_oa["launches"] + ms_oa
     oa_row["config4"] = pl_oa
-    rows = [oa_row, lr_row, sr_row] + scan_rows_
+    # ---- 10. the tape's trace, segment and scan paths; the clamp read
+    # carries the trace and the segment engine too
+    lr_paths, ts_row = tape_other_path(dev, card)
+    lr_row["launches_by_path"] = dict(config1=lr_row["launches"], **lr_paths)
+    lr_row["launches"] += sum(lr_paths.values())
+    rows = [oa_row, lr_row, sr_row] + scan_rows_ + [ts_row]
 
     print(json.dumps({"kernels": rows}))
     print(name_limit)

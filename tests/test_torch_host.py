@@ -335,6 +335,7 @@ _ENTRY_POINTS = [
     ("microsound", "render"), ("microsound", "render_program"),
     ("tape", "build_tape_program"), ("tape", "build_tape_program_cached"),
     ("tape", "render_tape"), ("tape", "render_to_wav"),
+    ("tape", "render_tape_trace"), ("tape", "build_trace_programs"),
     ("patternlab", "render"), ("patternlab", "render_device"),
     ("patternlab", "render_preset"), ("patternlab", "prepared_to_device"),
     ("patternlab", "MegaDriveInspiredSynth"),

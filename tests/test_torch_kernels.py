@@ -706,3 +706,140 @@ def test_scan_mode_renders_on_cuda_match_cpu(cuda, mode, monkeypatch):
     assert draws == []
     dev = (got.cpu().double() - want.double()).abs().max().item()
     assert 20 * np.log10(max(dev, 1e-300)) <= -100.0
+
+
+# ---------------------------------------------------------------------------
+# tape_scan.cu: the tape's scan engine
+# ---------------------------------------------------------------------------
+
+def _scan_case(kind, device):
+    """A scan program on ``device`` (``tape.scan_inputs`` and the consts):
+    bench config 1's smoke tape with inertia on or off; the splice and
+    anti-click gains off; or a 1 777-sample tape that the render wraps
+    around many times without a seek, reversed and with every gain on."""
+    prog = _smoke_tape("cpu")
+    audio = prog["audio"].numpy()
+    n = len(audio)
+    if kind == "wrap":
+        audio = audio[:1777]
+        n = len(audio)
+        p = tape.TapeParams(
+            sample_rate=48000, markers=[n // 3], section_speeds=[3.7, 2.9],
+            section_reverse=[True, False], inertia_enabled=True,
+            inertia_amount=20, current_speed=0.5, tape_age=100,
+            boundary_smooth_len=40, splice_env_len=64)
+    else:
+        p = tape.TapeParams(
+            sample_rate=48000,
+            markers=[int(n * f) for f in (0.12, 0.3, 0.45, 0.6, 0.8)],
+            section_speeds=[1.0, 2.0, 0.5, 4.0, 0.25, 1.5],
+            section_reverse=[False, True, False, True, False, False],
+            tape_age=60, inertia_enabled=kind == "inertia",
+            inertia_amount=70, current_speed=2.5,
+            enable_splice_fx=kind != "no gains",
+            anticlick_enabled=kind != "no gains")
+    prog = tape.build_tape_program(audio, p, 4000, device=device)
+    mod_q = tape.wow_flutter_mod(4000, p.sample_rate, p.tape_age)
+    return tape.scan_inputs(prog, mod_q), prog["consts"]
+
+
+@pytest.mark.parametrize("kind", ["inertia", "no inertia", "no gains",
+                                  "wrap"])
+@pytest.mark.parametrize("carried", [False, True], ids=["start", "carried"])
+def test_tape_scan_kernel_bit_equal_to_plain(cuda, kind, carried):
+    ins, consts = _scan_case(kind, cuda)
+    state = None
+    if carried:                  # inside the tape and inside an envelope
+        state = varispeed.TapeState(*(
+            torch.tensor(v, dtype=torch.float32 if k == 2 else torch.int32,
+                         device=cuda)
+            for k, v in enumerate((ins[0].shape[0] * 2 + 5, 4194303, 1.25,
+                                   17, 3))))
+    want, st_w = varispeed.tape_scan_render_plain(*ins, consts, state)
+    n0 = kernels.tape_scan.launches
+    got, st_g = varispeed.tape_scan_render(*ins, consts, state)
+    torch.cuda.synchronize()
+    assert kernels.tape_scan.launches == n0 + 1
+    assert torch.equal(got, want)
+    assert [int(v.view(torch.int32)) if v.dtype == torch.float32 else int(v)
+            for v in st_g] == \
+        [int(v.view(torch.int32)) if v.dtype == torch.float32 else int(v)
+         for v in st_w]
+    assert got.abs().max().item() > 0.1
+
+
+def test_tape_scan_kernel_on_one_sample_and_none(cuda):
+    ins, consts = _scan_case("inertia", cuda)
+    for T in (0, 1, 31, 33):
+        part = (ins[0], ins[1][:T].contiguous()) + ins[2:]
+        want, st_w = varispeed.tape_scan_render_plain(*part, consts)
+        got, st_g = varispeed.tape_scan_render(*part, consts)
+        torch.cuda.synchronize()
+        assert got.shape == (T,) and torch.equal(got, want)
+        assert [float(v) for v in st_g] == [float(v) for v in st_w]
+
+
+def test_tape_scan_kernel_rejects_what_it_does_not_take(cuda):
+    ins, consts = _scan_case("inertia", cuda)
+    kw = dict(anticlick_on=True, smooth_len=400, strength=0.55,
+              splice_on=True, inertia_on=True, alpha_q=0.01)
+    st = torch.zeros(5, dtype=torch.int32, device=cuda)
+    n0 = kernels.tape_scan.launches
+    bad = list(ins)
+    bad[0] = ins[0].cpu()                                # audio on the CPU
+    with pytest.raises(ValueError):
+        kernels.tape_scan(*bad, st, **kw)
+    bad = list(ins)
+    bad[1] = ins[1].double()
+    with pytest.raises(TypeError):
+        kernels.tape_scan(*bad, st, **kw)
+    bad = list(ins)
+    bad[5] = ins[5].to(torch.uint8)                      # reverse not bool
+    with pytest.raises(TypeError):
+        kernels.tape_scan(*bad, st, **kw)
+    bad = list(ins)
+    bad[3] = ins[3][:-1]                                 # ends short
+    with pytest.raises(ValueError):
+        kernels.tape_scan(*bad, st, **kw)
+    with pytest.raises(ValueError):
+        kernels.tape_scan(*ins, st[:4], **kw)
+    big = torch.arange(4000, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):                      # past shared memory
+        kernels.tape_scan(ins[0], ins[1], big, big, big.float(),
+                          torch.zeros(4000, dtype=torch.bool, device=cuda),
+                          ins[6], ins[7], st, **kw)
+    assert kernels.tape_scan.launches == n0
+
+
+def test_tape_engines_on_cuda_match_cpu(cuda):
+    """The trace renderer (one lerp_read a segment), the segment engine
+    (one) and the scan engine (one tape_scan) on the card, each within
+    -120 dBFS of the same render on the CPU."""
+    sr = 8000
+    rng = np.random.default_rng(3)
+    t = np.arange(2 * sr) / sr
+    audio = (0.5 * np.sin(2 * np.pi * 180 * t)
+             + 0.05 * rng.standard_normal(t.size)).astype(np.float32)
+    p = tape.TapeParams(sample_rate=sr, markers=[3000, 9000],
+                        section_speeds=[1.0, 0.5, 2.0],
+                        section_reverse=[False, False, True], tape_age=40)
+    tr = tape.TapeTrace()
+    tr.add(0.2, "set_speed", section=0, value=1.7)
+    tr.add(0.5, "set_inertia", value=True)
+    tr.add(0.9, "set_splice", value=False)
+    tr.add(1.0, "set_splice", value=True)
+    tr.add(1.3, "seek", sample=100)
+    n0 = kernels.lerp_read.launches
+    got = tape.render_tape_trace(audio, p, tr, 3 * sr, device=cuda)
+    assert kernels.lerp_read.launches == n0 + 6
+    want = tape.render_tape_trace(audio, p, tr, 3 * sr, device="cpu")
+    assert 20 * np.log10(max(np.abs(got.astype(np.float64) - want).max(),
+                             1e-300)) <= -120.0
+    for engine, kern in (("segment", kernels.lerp_read),
+                         ("scan", kernels.tape_scan)):
+        n0 = kern.launches
+        got = tape.render_tape(audio, p, 3000, device=cuda, engine=engine)
+        assert kern.launches == n0 + 1
+        want = tape.render_tape(audio, p, 3000, device="cpu", engine=engine)
+        assert 20 * np.log10(max(np.abs(got.astype(np.float64)
+                                        - want).max(), 1e-300)) <= -120.0

@@ -16,10 +16,14 @@ Same inputs, made with numpy from a seed, through both packages:
   backend contracts that lerp into a fused multiply-add);
 - bench config 1 at its smoke size: the float render within -120 dBFS of
   JAX's ``tape_table_render`` and PCM16 within 1 LSB;
-- the ``tape``, ``tape_splicefx`` and ``tape_sinc`` golden fingerprints
-  (the sinc render within -100 dBFS of JAX, PCM16 within 1 LSB);
-- the unported paths raise, and the package renders with jax and the
-  JAX package blocked.
+- the ``tape``, ``tape_splicefx``, ``tape_sinc`` and ``tape_trace``
+  golden fingerprints (the sinc render within -100 dBFS of JAX, PCM16
+  within 1 LSB), and each of the trace golden's two mutations fails it;
+- a failed build of the C++ runtime raises, and the package renders with
+  jax and the JAX package blocked.
+
+(The trace renderer and the segment and scan engines are held against
+JAX in ``test_torch_tape_trace.py``.)
 """
 import dataclasses
 import json
@@ -121,6 +125,26 @@ def _golden_sinc(mod):
     return goldens._test_audio(), p, 16000
 
 
+def _golden_trace(mod, mut=None):
+    """tests/test_goldens.py:130-144, a performance; ``mut`` perturbs one
+    of its stages by the golden test's 1e-3 (``goldens._m``)."""
+    sr = goldens.SR
+    tr = mod.TapeTrace()
+    tr.add(0.20, "set_speed", section=0,
+           value=goldens._m(mut, "trace_speed", 1.7))
+    tr.add(0.45, "set_reverse", section=1, value=True)
+    tr.add(0.70, "set_age", value=95)
+    tr.add(0.90, "add_marker", sample=sr // 2)
+    tr.add(1.10, "set_inertia", value=True)
+    tr.add(1.40, "seek", sample=100)
+    tr.add(1.60, "retime", target=goldens._m(mut, "retime", 1.2))
+    p = mod.TapeParams(sample_rate=sr, markers=[5000, 10000],
+                       section_speeds=[1.0, 0.5, 2.0],
+                       section_reverse=[False, False, True],
+                       tape_age=40, current_speed=1.0)
+    return goldens._test_audio(), p, tr, sr * 2
+
+
 CONFIGS = {"config1_smoke": _config1, "tape": _golden_tape,
            "tape_splicefx": _golden_splicefx}
 # golden fixture -> (configuration, interp, dBFS bound against JAX): the
@@ -128,7 +152,18 @@ CONFIGS = {"config1_smoke": _config1, "tape": _golden_tape,
 # PyTorch, so it is held to the JAX package's sinc-twin level
 GOLDENS = {"tape": (_golden_tape, "linear", TOL_DBFS),
            "tape_splicefx": (_golden_splicefx, "linear", TOL_DBFS),
-           "tape_sinc": (_golden_sinc, "sinc", -100.0)}
+           "tape_sinc": (_golden_sinc, "sinc", -100.0),
+           "tape_trace": (_golden_trace, "linear", TOL_DBFS)}
+
+
+def _golden_render(mod, name, mut=None, **kw):
+    """The golden fixture's render through ``mod`` (``kw``: the port's
+    device)."""
+    config, interp, _ = GOLDENS[name]
+    if name == "tape_trace":
+        audio, p, tr, frames = _golden_trace(mod, mut)
+        return mod.render_tape_trace(audio, p, tr, num_frames=frames, **kw)
+    return mod.render_tape(*config(mod), interp=interp, **kw)
 
 
 def _programs(name):
@@ -404,16 +439,26 @@ def test_config1_smoke_render_matches_jax():
 
 @pytest.mark.parametrize("name", sorted(GOLDENS))
 def test_golden_fingerprint(name):
-    config, interp, tol = GOLDENS[name]
-    audio, p, frames = config(tt)
-    y = tt.render_tape(audio, p, frames, device="cpu", interp=interp)
+    tol = GOLDENS[name][2]
+    y = _golden_render(tt, name, device="cpu")
     with open(goldens.GOLDEN_PATH) as f:
         want = json.load(f)[name]
     goldens._compare(name, goldens._fingerprint(y), want)
-    ref = jt.render_tape(*config(jt), interp=interp)
+    ref = _golden_render(jt, name)
     dev = _dbfs(ref, y)
     print(f"{name} render vs JAX: {dev:.2f} dBFS")
     assert dev <= tol
+
+
+@pytest.mark.parametrize("stage", ["trace_speed", "retime"])
+def test_trace_golden_mutation_fails_it(stage):
+    """tests/test_goldens.py's mutation check on the port: a 1e-3
+    perturbation of either traced stage fails the ``tape_trace`` golden."""
+    assert ("tape_trace", stage) in goldens.MUTATIONS
+    with open(goldens.GOLDEN_PATH) as f:
+        want = json.load(f)["tape_trace"]
+    y = _golden_render(tt, "tape_trace", mut=stage, device="cpu")
+    assert not goldens._matches(goldens._fingerprint(y), want)
 
 
 def test_sinc_render_pcm16_matches_jax():
@@ -448,23 +493,6 @@ def test_render_to_wav_matches_jax(tmp_path):
     wj, _ = audio_io.read_wav(str(tmp_path / "j.wav"))
     assert sr == goldens.SR and wt.shape == wj.shape == (frames,)
     assert np.abs(wt - wj).max() <= 1.0 / 32768 + 1e-9
-
-
-@pytest.mark.parametrize("what", ["scan", "segment", "trace", "trace_cls",
-                                  "pieces"])
-def test_unported_paths_raise(what):
-    audio, p, frames = _golden_tape(tt)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        if what in ("scan", "segment"):
-            tt.render_tape(audio, p, frames, device="cpu", engine=what)
-        elif what == "trace":
-            tt.render_tape_trace(audio, p, None)
-        elif what == "trace_cls":
-            tt.TapeTrace()
-        else:
-            prog = tt.build_tape_program(audio, p, frames, device="cpu")
-            tv.tape_device_render(prog["audio"], tt.device_tables(prog),
-                                  prog["consts"], frames, with_pieces=True)
 
 
 def test_missing_native_library_raises(monkeypatch, tmp_path):
