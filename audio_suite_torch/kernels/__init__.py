@@ -102,12 +102,18 @@ _SIGNATURES = {
                        _P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_float,
                        ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_float, _P, _P, _P, _P, _P, _P, _P],
-                      ctypes.c_int),
+                       ctypes.c_float, _P, ctypes.c_int, _P, _P, _P, _P, _P,
+                       _P], ctypes.c_int),
+        "ts_scratch_words": ([ctypes.c_longlong, ctypes.c_int, ctypes.c_int],
+                             ctypes.c_longlong),
         "ts_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
 }
 TAPE_SCAN_MAX_TABLE_WORDS = 12288   # tape_scan.cu's kMaxTableWords
+TAPE_SCAN_CHUNK = 1024  # tape_scan.cu's steps a chunk: a power of two in
+TAPE_SCAN_CHUNKS = (32, 4096)  # this range (kMinChunk, kMaxChunk)
+TAPE_SCAN_REC_WORDS = 8  # a chunk's record (kRecWords); bit 0 of word 5:
+#                          jumped
 MAX_HEADS = 3           # scrub_read_kernel's head slots (lerp_read.cu)
 
 
@@ -391,17 +397,25 @@ def tape_scan(audio: torch.Tensor, mod_q: torch.Tensor, starts: torch.Tensor,
               reverse: torch.Tensor, boundaries: torch.Tensor,
               splice_env: torch.Tensor, state: torch.Tensor, *,
               anticlick_on: bool, smooth_len: int, strength: float,
-              splice_on: bool, inertia_on: bool, alpha_q: float
-              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``tape_scan.cu`` (its chain kernel, then its read kernel) on
-    the current stream and return the new (out f32 [T], final state int32
-    [5]) of the tape's scan engine from audio f32 [n], mod_q f32 [T],
-    starts / ends int32 [S], speeds_q f32 [S], reverse bool [S],
-    boundaries int32 [B], splice_env f32 [E] and the initial ``state``
-    int32 [5] (whole, frac, the speed's f32 bits, splice rem, splice
-    index), all contiguous on one CUDA device; 0 < n < 2**31, S >= 1 and
-    4 S + B <= TAPE_SCAN_MAX_TABLE_WORDS; the scalars are the TapeConsts
-    fields (f32 values)."""
+              splice_on: bool, inertia_on: bool, alpha_q: float,
+              chunk: int = TAPE_SCAN_CHUNK, return_records: bool = False,
+              marks=None):
+    """Launch ``tape_scan.cu`` (the chunk sums, the walk, the replay) on
+    the current stream and
+    return the new (out f32 [T], final state int32 [5]) of the tape's scan
+    engine from audio f32 [n], mod_q f32 [T], starts / ends int32 [S],
+    speeds_q f32 [S], reverse bool [S], boundaries int32 [B], splice_env
+    f32 [E] and the initial ``state`` int32 [5] (whole, frac, the speed's
+    f32 bits, splice rem, splice index), all contiguous on one CUDA
+    device; 0 < n < 2**31, S >= 1 and 4 S + B <= TAPE_SCAN_MAX_TABLE_WORDS;
+    the scalars are the TapeConsts fields (f32 values).  ``chunk`` is the
+    steps a chunk (a power of two in TAPE_SCAN_CHUNKS); with
+    ``return_records`` a third item, the chunks' records int32
+    [ceil(T / chunk), TAPE_SCAN_REC_WORDS] (each chunk's start state, and
+    in word 5 whether it was jumped), and a fourth, the walked chunks'
+    count (int32 [1]), both on the device.  ``marks``: two
+    ``torch.cuda.Event``s recorded after the chunk sums and after the
+    walk, to time the passes."""
     S, B, E, T = (starts.shape[0], boundaries.shape[0], splice_env.shape[0],
                   mod_q.shape[0])
     n = audio.shape[0]
@@ -418,14 +432,24 @@ def tape_scan(audio: torch.Tensor, mod_q: torch.Tensor, starts: torch.Tensor,
         raise ValueError(f"tape_scan kernel: {S} sections and {B} "
                          f"boundaries (at least 1 section, 4 S + B <= "
                          f"{TAPE_SCAN_MAX_TABLE_WORDS})")
+    lo, hi = TAPE_SCAN_CHUNKS
+    if not (lo <= chunk <= hi and chunk & (chunk - 1) == 0):
+        raise ValueError(f"tape_scan kernel: chunk {chunk} (a power of two "
+                         f"in [{lo}, {hi}])")
     dev = audio.device
-    out = torch.empty(T, dtype=torch.float32, device=dev)
-    idx0 = torch.empty(T, dtype=torch.int32, device=dev)
-    fr = torch.empty(T, dtype=torch.float32, device=dev)
-    gi = torch.empty(T, dtype=torch.int32, device=dev)
-    fin = torch.empty(5, dtype=torch.int32, device=dev)
-    inv_smooth = 1.0 / max(1, int(smooth_len))
     lib = _lib("tape_scan")
+    out = torch.empty(T, dtype=torch.float32, device=dev)
+    fin = torch.empty(5, dtype=torch.int32, device=dev)
+    scratch = torch.empty(lib.ts_scratch_words(T, S, chunk),
+                          dtype=torch.int32, device=dev)
+    inv_smooth = 1.0 / max(1, int(smooth_len))
+    handles = [None] * 2
+    if marks is not None:
+        if len(marks) != 2:
+            raise ValueError(f"tape_scan kernel: {len(marks)} marks (2)")
+        for e in marks:
+            e.record()                     # creates the event
+        handles = [e.cuda_event for e in marks]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ts_launch(
@@ -434,14 +458,19 @@ def tape_scan(audio: torch.Tensor, mod_q: torch.Tensor, starts: torch.Tensor,
             boundaries.data_ptr(), B, splice_env.data_ptr(), E,
             int(bool(anticlick_on)), int(smooth_len), float(strength),
             inv_smooth, int(bool(splice_on)), int(bool(inertia_on)),
-            float(alpha_q), state.data_ptr(), idx0.data_ptr(),
-            fr.data_ptr(), gi.data_ptr(), out.data_ptr(), fin.data_ptr(),
-            stream)
+            float(alpha_q), state.data_ptr(), int(chunk),
+            scratch.data_ptr(), out.data_ptr(), fin.data_ptr(), stream,
+            *handles)
     if rc != 0:
         raise RuntimeError("tape_scan kernel launch failed: "
                            + lib.ts_error_string(rc).decode())
     tape_scan.launches += 1
-    return out, fin
+    if not return_records:
+        return out, fin
+    nch = -(-T // chunk)
+    w = TAPE_SCAN_REC_WORDS
+    return (out, fin, scratch[:w * nch].view(nch, w),
+            scratch[w * nch:w * nch + 1])
 
 
 tape_scan.launches = 0

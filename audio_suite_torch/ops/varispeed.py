@@ -853,6 +853,30 @@ def tape_scan_render_plain(audio: torch.Tensor, mod_q: torch.Tensor,
                         i32(sidx))
 
 
+def scan_state_words(state: Optional[TapeState], consts: TapeConsts,
+                     device) -> torch.Tensor:
+    """The kernel's int32 [5] state words of ``state`` (default: the start
+    of the tape at ``consts.initial_speed_q``) on ``device``: whole, frac,
+    the speed's f32 bits, splice rem, splice index."""
+    if state is None:
+        state = _initial_state(consts, device)
+
+    def word(v, dtype):
+        return torch.as_tensor(v, dtype=dtype).to(device).reshape(1) \
+            .view(torch.int32)
+    return torch.cat([word(state.whole, torch.int32),
+                      word(state.frac, torch.int32),
+                      word(state.speed, torch.float32),
+                      word(state.splice_rem, torch.int32),
+                      word(state.splice_idx, torch.int32)])
+
+
+def scan_state(words: torch.Tensor) -> TapeState:
+    """The TapeState of the kernel's int32 [5] state words."""
+    return TapeState(words[0], words[1], words[2:3].view(torch.float32)[0],
+                     words[3], words[4])
+
+
 def tape_scan_render(audio: torch.Tensor, mod_q: torch.Tensor,
                      starts: torch.Tensor, ends: torch.Tensor,
                      speeds_q: torch.Tensor, reverse: torch.Tensor,
@@ -871,22 +895,10 @@ def tape_scan_render(audio: torch.Tensor, mod_q: torch.Tensor,
         return tape_scan_render_plain(audio, mod_q, starts, ends, speeds_q,
                                       reverse, boundaries, splice_env,
                                       consts, state)
-    if state is None:
-        state = _initial_state(consts, audio.device)
-
-    def word(v, dtype):
-        return torch.as_tensor(v, dtype=dtype).to(audio.device).reshape(1) \
-            .view(torch.int32)
-    st = torch.cat([word(state.whole, torch.int32),
-                    word(state.frac, torch.int32),
-                    word(state.speed, torch.float32),
-                    word(state.splice_rem, torch.int32),
-                    word(state.splice_idx, torch.int32)])
     out, fin = kernels.tape_scan(
         audio, mod_q, starts, ends, speeds_q, reverse, boundaries,
-        splice_env, st,
+        splice_env, scan_state_words(state, consts, audio.device),
         anticlick_on=consts.anticlick_on, smooth_len=consts.smooth_len,
         strength=consts.anticlick_strength, splice_on=consts.splice_on,
         inertia_on=consts.inertia_on, alpha_q=consts.alpha_q)
-    return out, TapeState(fin[0], fin[1], fin[2:3].view(torch.float32)[0],
-                          fin[3], fin[4])
+    return out, scan_state(fin)

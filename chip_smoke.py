@@ -3,13 +3,16 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --scan-ab path/to/grain_scan.cu
+    python3 chip_smoke.py --tape-scan-ab path/to/tape_scan.cu
 
 The second form builds the kernels, then only holds another grain_scan.cu
 (e.g. an earlier commit's, from ``git archive`` into the git-ignored
 ``_local/``) against the port's at phase 9's two shapes and times the two
 in turns (``scan_ab``); a source without the stick-slip kernel that draws
 its own noise meets it with its whole path (two ``noise.normal`` draws
-and its row kernel).
+and its row kernel).  The third does the same for another tape_scan.cu
+at config 1's full size (``tape_scan_ab``): a source whose ``ts_launch``
+takes per-sample scratch (idx0, fr, gi), as the one-warp design's does.
 
 Drives audio_suite_torch's ported paths at full size on the card, in
 phases; any failure raises and the exit code is non-zero.  The paths:
@@ -162,14 +165,21 @@ Phases:
    frames of config 1's smoke tape with and without inertia, final state
    equal, at config 1's full size through ``render_tape`` (one launch)
    within -120 dBFS of the segment engine with its final whole, frac and
-   speed equal, and bit-equal to its plain version, all five state words
-   too, on windows of config 1's full-size program across each section
-   change and the wrap, each from the C++ trajectory's state there
+   speed equal, bit-identical across chunk lengths 256, 1 024 and 4 096
+   (samples and state), and bit-equal to its plain version, all five
+   state words too, on windows of config 1's full-size program across
+   each section change and the wrap, each from the C++ trajectory's
+   state there, and on two whose section change falls on the first and
+   on the last step of one of the window launch's chunks
    (``scan_windows``; and on a variant with inertia on and section 0
-   reversed, whose reads reach (-1, 0)); its time beside its function's
-   bound (bytes and f32 operations) and this design's own limits, its
-   dependency chain and issue count from its SASS (``tape_chain_sass``),
-   and the plain version's time a sample.
+   reversed, whose reads reach (-1, 0)); its time at each chunk length,
+   split into its walk (the chunk sums and the walk) and its replay (CUDA
+   events between the passes), with
+   the chunks jumped and walked, beside its function's bound (bytes and
+   f32 operations), its design's own bytes (``scan_design_bytes``) and
+   the walk's decisions (``scan_decisions``); the
+   same for the inertia variant at full size; and the plain version's
+   time a sample.
 
 Every kernel's launch count is set to 0 just before a path is driven and
 read just after it.  A kernel is timed twice.  Warm (its ``ms``, the
@@ -2256,15 +2266,16 @@ TRACE_SR = 8000         # tests/test_tape_trace.py's rate
 TRACE_SEGMENTS = 13     # the config-1 trace's segments
 TIMED_TRACES = 3        # timed config-1 trace renders (each ~2 s)
 SCAN_PLAIN_FRAMES = 4000  # the scan's plain loop: ~0.1 ms of host time a step
-TIMED_SCANS = 3         # timed full-size scan launches (each ~0.7 s)
+SCAN_CHUNKS = (256, 1024, 4096)  # the full-size launch's chunk lengths
+SCAN_GROUP = 128        # chunks a walk decision (tape_scan.cu's kGroupChunks)
+SCAN_VARIANT_RUNS = 3   # timed runs of the inertia variant (~30 ms a call)
+SCAN_AB_TURNS = 2       # --tape-scan-ab: calls a turn (port, other, other,
+#                         port); the one-warp design takes ~0.7 s a call
 SCAN_WINDOW = 2000      # frames of a full-size window held against the
 #                         plain loop (~10-35 us of host time a step)
 # f32 operations a sample: the lerp's 4, the two gains' 2 and the clip's
 # 2, the increment's 2 multiplies; inertia 5 more
 TAPE_SCAN_FLOPS = {False: 10, True: 15}
-# SASS opcodes that write no register
-SASS_NO_DST = ("ST", "RED", "BRA", "EXIT", "BAR", "WARPSYNC", "BSSY",
-               "BSYNC", "NOP", "MEMBAR", "CALL", "RET", "DEPBAR", "YIELD")
 
 
 def config1_trace(n: int):
@@ -2340,98 +2351,155 @@ def tape_state(st) -> tuple:
             int(st.splice_rem), int(st.splice_idx))
 
 
-def _sass_regs(operand: str) -> list:
-    """The registers an SASS operand names (a .64 operand: its pair)."""
-    regs = []
-    for m in re.finditer(r"(?<![\w.])(U?R\d+|U?P\d)(\.64)?", operand):
-        regs.append(m.group(1))
-        if m.group(2):
-            head = m.group(1).rstrip("0123456789")
-            regs.append(head + str(int(m.group(1)[len(head):]) + 1))
-    return regs
-
-
-def _sass_pred(operand: str) -> bool:
-    return re.fullmatch(r"!?U?P[T\d]", operand) is not None
-
-
-def tape_chain_sass(so: str, splice: bool, inertia: bool) -> dict:
-    """The dependency chain of one step of ``tape_chain_kernel<splice,
-    inertia>`` from ``cuobjdump -sass`` of the built library.  The step
-    loop is the innermost loop that holds the shuffles (one a step,
-    unrolled); the common step runs from its shuffle to its first
-    conditional branch, which skips the searching ``general()`` block to
-    the step's tail.  Along that path every instruction waits on the
-    registers and predicates it reads (a predicated write also on the
-    register's old value), and every instruction after a branch on the
-    branch (the warp issues in order and predicts nothing).  The longest
-    path, in instructions, through several passes of the loop body, a
-    step: ``chain_ops``; the path's instructions a step:
-    ``path_instructions``.  Of several such loops (nvcc may version one)
-    the one with the shorter chain."""
+def scan_call(ins: tuple, consts, chunk: int):
+    """A call of ``kernels.tape_scan`` on the scan inputs ``ins`` from the
+    start of the tape, its state words made once: it returns (out, the
+    final state words, the chunk records, the walked count), and passes
+    its keywords (``marks``) on."""
     from audio_suite_torch import kernels
-    cuobj = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobj, "-sass", so], capture_output=True,
-                          text=True, check=True, timeout=120).stdout
-    key = f"tape_chain_kernelILb{int(splice)}ELb{int(inertia)}E"
-    body = next(f for f in re.split(r"\n\s*Function : ", sass)
-                if key in f.split("\n", 1)[0])
-    pat = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?(U?P[T\d]+)\s+)?"
-                     r"([A-Z][\w.]*)([^;]*);")
-    ins = [(int(a, 16), "" if g in ("PT", "UPT") else g, op,
-            [o.strip() for o in rest.split(",")] if rest.strip() else [])
-           for a, g, op, rest in pat.findall(body)]
-    at = {a: k for k, (a, *_) in enumerate(ins)}
-    shfl = [a for a, _, op, _ in ins if op.startswith("SHFL")]
+    from audio_suite_torch.ops import varispeed
+    words = varispeed.scan_state_words(None, consts, ins[0].device)
+    kw = dict(anticlick_on=consts.anticlick_on, smooth_len=consts.smooth_len,
+              strength=consts.anticlick_strength,
+              splice_on=consts.splice_on, inertia_on=consts.inertia_on,
+              alpha_q=consts.alpha_q, chunk=chunk, return_records=True)
+    return lambda **extra: kernels.tape_scan(*ins, words, **kw, **extra)
 
-    def target(op, ops):
-        m = re.fullmatch(r"0x([0-9a-f]+)", ops[-1]) \
-            if op.startswith("BRA") and ops else None
-        return int(m.group(1), 16) if m else None
-    loops = [(sum(t <= x <= a for x in shfl), t, a)
-             for a, _, op, ops in ins
-             for t in [target(op, ops)] if t is not None and t < a]
-    inner = [(c, t, a) for c, t, a in loops if c and not any(
-        c2 and t <= t2 and a2 <= a and (t2, a2) != (t, a)
-        for c2, t2, a2 in loops)]
-    found = []
-    for steps, top, edge in inner:
-        marks = [x for x in shfl if top <= x <= edge]
-        path, k = [], at[top]
-        while ins[k][0] < edge:
-            a, g, op, ops = ins[k]
-            path.append(ins[k])
-            t = target(op, ops)
-            if t is not None and (g or any(map(_sass_pred, ops[:-1]))):
-                if not a < t <= min([x for x in marks if x > a] + [edge]):
-                    raise AssertionError(f"{key}: the branch at {a:#x} to "
-                                         f"{t:#x} leaves its step")
-                k = at[t]
-            else:
-                k += 1
-        depth, ctrl, last = {}, 0, 0
-        for _ in range(8):
-            first = last
-            for a, g, op, ops in path:
-                base = op.split(".")[0]
-                nd = 0 if base.startswith(SASS_NO_DST) else (
-                    2 if len(ops) > 1 and (_sass_pred(ops[0])
-                                           or _sass_pred(ops[1])) else 1)
-                dsts = [r for o in ops[:nd] for r in _sass_regs(o)]
-                srcs = [r for o in ops[nd:] for r in _sass_regs(o)]
-                if g:
-                    srcs += [g] + dsts
-                d = max([depth.get(r, 0) for r in srcs] + [ctrl]) + 1
-                depth.update((r, d) for r in dsts)
-                if base == "BRA":
-                    ctrl = d
-            last = max(list(depth.values()) + [ctrl])
-        found.append({"chain_ops": (last - first) / steps,
-                      "path_instructions": len(path) / steps,
-                      "unrolled_steps": steps})
-    if not found:
-        raise AssertionError(f"{key}: no step loop in its SASS")
-    return min(found, key=lambda f: f["chain_ops"])
+
+def scan_decisions(jumped: np.ndarray) -> int:
+    """The walk's sequential decisions for the chunks' jumped flags: one
+    a group of up to SCAN_GROUP consecutive jumped chunks, one a walked
+    chunk."""
+    cuts = np.flatnonzero(np.diff(np.r_[0, jumped.astype(np.int8), 0]))
+    runs = cuts[1::2] - cuts[::2]
+    return int(-(-runs // SCAN_GROUP).sum() + (~jumped).sum())
+
+
+def scan_timing(fn, result, runs: int, launches: int) -> dict:
+    """``fn`` (a ``scan_call``) timed warm (``kernel_ms``) and split into
+    its passes: behind a sleep kernel, one event before a call, its two
+    marks (after the chunk sums, after the walk) and one after it (the
+    replay), the median of ``runs`` calls each; with its chunks jumped and
+    walked from ``result`` (a call's return) and the walk's decisions."""
+    _, _, rec, nwalked = result
+    jumped = (rec[:, 5] & 1).bool().cpu().numpy()
+    if int(nwalked[0]) != int((~jumped).sum()):
+        raise AssertionError(f"walked count {int(nwalked[0])}, records "
+                             f"{int((~jumped).sum())}")
+    ms = kernel_ms(fn, runs, launches)
+    parts = []
+    for _ in range(runs):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda._sleep(SLEEP_CYCLES)
+        ev[0].record()
+        fn(marks=ev[1:3])
+        ev[3].record()
+        ev[3].synchronize()
+        parts.append([ev[k].elapsed_time(ev[k + 1]) for k in range(3)])
+    sums, walk, replay = (statistics.median(q[k] for q in parts)
+                          for k in range(3))
+    decisions = scan_decisions(jumped)
+    return {"ms": ms, "walk_ms": sums + walk, "sums_ms": sums,
+            "replay_ms": replay,
+            "chunks": len(jumped), "jumped": int(jumped.sum()),
+            "walked": int((~jumped).sum()),
+            "jumped_share": float(jumped.mean()) if len(jumped) else 1.0,
+            "decisions": decisions,
+            "walk_us_a_decision": walk * 1e3 / max(decisions, 1)}
+
+
+def scan_design_bytes(n: int, T: int, chunk: int, S: int, B: int, E: int,
+                      walked: int) -> int:
+    """The bytes tape_scan.cu's passes must move at least: the function's
+    own (audio, mod_q, the output, the tables), mod_q once more (the sums
+    pass and the replay each read it), the sums' table written and read
+    (16 bytes a chunk and row, kTableRows rows at most), the chunks'
+    records written and read (32 bytes each), and the walked chunks' mod
+    values staged twice (the walk and the replay)."""
+    nch = -(-T // chunk)
+    rows = min(S, 16)
+    return (4 * (n + 2 * T + 4 * S + B + E + 10) + 4 * T
+            + 16 * nch * (rows + 1) + 64 * nch + 8 * chunk * walked)
+
+
+def tape_scan_ab(dev, card: str, src: str) -> dict:
+    """The port's tape_scan.cu against ``src`` (another tape_scan.cu, e.g.
+    the parent commit's, from ``git archive`` into ``_local/``) at config
+    1's full size (T 8 745 204): the other's output and final state held
+    bit-equal to the port's, then each timed in turns (port, other,
+    other, port), SCAN_AB_TURNS calls a turn, one CUDA event pair a call
+    behind a sleep kernel; the medians and every time.  The other's ``ts_launch`` must take
+    per-sample scratch (idx0, fr, gi), as the one-warp design's does."""
+    from audio_suite_torch import kernels
+    from audio_suite_torch.models import tape
+    from audio_suite_torch.ops import varispeed
+    lib, ptxas = build_ab("ab_tape_scan", src)
+    for row in ptxas:
+        print(f"tape_scan A/B: ptxas other {row}", flush=True)
+    with open(src) as f:
+        per_sample = re.search(r"ts_launch\([^)]*\bint\* idx0",
+                               f.read()) is not None
+    if not per_sample:
+        raise ValueError(f"{src}: its ts_launch takes no per-sample "
+                         "scratch; only the one-warp design is compared")
+    P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+        ctypes.c_longlong
+    lib.ts_launch.argtypes = [P, I, P, L, P, P, P, P, I, P, I, P, I, I, I, F,
+                              F, I, I, F, P, P, P, P, P, P, P]
+    lib.ts_error_string.restype = ctypes.c_char_p
+    audio, p, frames = config1(TAPE_SECONDS)
+    adev = torch.as_tensor(audio, device=dev)
+    prog = tape.build_tape_program(adev, p, frames, device=dev)
+    ins = tape.scan_inputs(prog, tape.wow_flutter_mod(frames, p.sample_rate,
+                                                       p.tape_age))
+    consts = prog["consts"]
+    port = scan_call(ins, consts, kernels.TAPE_SCAN_CHUNK)
+    words = varispeed.scan_state_words(None, consts, dev)
+    T, n = ins[1].shape[0], ins[0].shape[0]
+    scratch = [torch.empty(T, dtype=dt, device=dev)
+               for dt in (torch.int32, torch.float32, torch.int32)]
+
+    def other():
+        out = torch.empty(T, dtype=torch.float32, device=dev)
+        fin = torch.empty(5, dtype=torch.int32, device=dev)
+        rc = lib.ts_launch(
+            ins[0].data_ptr(), n, ins[1].data_ptr(), T, ins[2].data_ptr(),
+            ins[3].data_ptr(), ins[4].data_ptr(), ins[5].data_ptr(),
+            ins[2].shape[0], ins[6].data_ptr(), ins[6].shape[0],
+            ins[7].data_ptr(), ins[7].shape[0], int(consts.anticlick_on),
+            int(consts.smooth_len), float(consts.anticlick_strength),
+            1.0 / max(1, int(consts.smooth_len)), int(consts.splice_on),
+            int(consts.inertia_on), float(consts.alpha_q),
+            words.data_ptr(), *(t.data_ptr() for t in scratch),
+            out.data_ptr(), fin.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(lib.ts_error_string(rc).decode())
+        return out, fin
+
+    want, fin_w = port()[:2]
+    got, fin_g = other()
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and torch.equal(fin_g, fin_w)):
+        raise AssertionError("the other tape_scan.cu differs from the port's")
+    fns = {"port": lambda: port(), "other": other}
+    times = {k: [] for k in fns}
+    for k in ("port", "other", "other", "port"):
+        for _ in range(SCAN_AB_TURNS):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SLEEP_CYCLES)
+            a.record()
+            fns[k]()
+            b.record()
+            b.synchronize()
+            times[k].append(a.elapsed_time(b))
+    med = {k: statistics.median(v) for k, v in times.items()}
+    print(f"tape_scan A/B (config 1, T {T}): bit-equal; port "
+          f"{med['port']:.4f} ms, other {med['other']:.2f} ms in turns "
+          f"(x{med['other'] / med['port']:.0f}) {card}", flush=True)
+    return {"T": T, "ms": med, "ms_in_turns": times,
+            "speedup": med["other"] / med["port"]}
 
 
 def scan_windows(label: str, prog: dict, mod_q: np.ndarray,
@@ -2440,11 +2508,16 @@ def scan_windows(label: str, prog: dict, mod_q: np.ndarray,
     too, on windows of SCAN_WINDOW frames of a full-size program: one
     centred on each visit's first frame (each section change, the wrap)
     of the program's C++ tables, each window started from the state the
-    C++ trajectory gives at its first frame.  With ``y_full`` (the
-    full-size launch of the main path) each window must also give that
-    launch's samples.  Returns (max |err|, what the windows held: the
-    section changes by section entered, the wraps, the splice triggers,
-    the reversed reads and those of them in (-1, 0))."""
+    C++ trajectory gives at its first frame; and two at the first visit
+    that starts a chunk or more in, whose first frame is the first (step
+    K) and the last (step K - 1) step of one of the window launch's
+    chunks (K = kernels.TAPE_SCAN_CHUNK).  With ``y_full`` (the full-size
+    launch of the main path) each window must also give that launch's
+    samples.  Returns (max |err|, what the windows held: the section
+    changes by section entered, the wraps, the splice triggers, the
+    reversed reads and those of them in (-1, 0), the chunk-edge windows
+    with the step of their section change)."""
+    from audio_suite_torch import kernels
     from audio_suite_torch.models import tape
     from audio_suite_torch.ops import varispeed
     from audio_suite_torch.utils import native_rt
@@ -2464,6 +2537,10 @@ def scan_windows(label: str, prog: dict, mod_q: np.ndarray,
             a = wins[-1][1]
         if a < T:
             wins.append((a, min(a + SCAN_WINDOW, T)))
+    K = kernels.TAPE_SCAN_CHUNK
+    v_edge = next(v for v in vs[1:] if v >= K)
+    edges = {"first": v_edge - K, "last": v_edge - K + 1}
+    wins += [(a, min(a + SCAN_WINDOW, T)) for a in edges.values()]
     held = np.zeros(T, bool)
     err = 0.0
     for a, b in wins:
@@ -2501,7 +2578,9 @@ def scan_windows(label: str, prog: dict, mod_q: np.ndarray,
                      if held[vs[k]] and vsec[k] <= vsec[k - 1]),
         "splice_triggers": int(sum(held[t] for t in tab["triggers"])),
         "reversed_reads": int(rev_read.sum()),
-        "reversed_reads_in_(-1,0)": int((rev_read & (traj["fr"] < 0)).sum())}
+        "reversed_reads_in_(-1,0)": int((rev_read & (traj["fr"] < 0)).sum()),
+        "chunk_edge_windows": {k: [a, min(a + SCAN_WINDOW, T), v_edge - a]
+                               for k, a in edges.items()}}
     return err, cover
 
 
@@ -2662,10 +2741,11 @@ def tape_other_path(dev, card: str):
               f"sample) {card}", flush=True)
 
     # the scan engine at full size: the main path's launch, against the
-    # segment engine, with the final state; the kernel against its plain
-    # loop on windows across every section change of config 1's program
-    # and of a variant with inertia on and section 0 reversed and slowed
-    # (its last frame read in (-1, 0)); then its time and bounds
+    # segment engine, with the final state; the kernel bit-identical at
+    # each chunk length; against its plain loop on windows across every
+    # section change of config 1's program and of a variant with inertia
+    # on and section 0 reversed and slowed (its last frame read in (-1,
+    # 0)); then its times, split and bounds, and the variant's
     reset_counts()
     y_scan = tape.render_tape(adev, p, device=dev, engine="scan")
     scan_launches = read_counts()
@@ -2678,7 +2758,16 @@ def tape_other_path(dev, card: str):
         raise AssertionError(f"scan engine {db:.1f} dBFS from the segment "
                              "engine")
     ins = tape.scan_inputs(full, mod_q)
-    _, st = varispeed.tape_scan_render(*ins, full["consts"])
+    calls = {K: scan_call(ins, full["consts"], K) for K in SCAN_CHUNKS}
+    runs = {K: fn() for K, fn in calls.items()}
+    out0, fin0 = runs[kernels.TAPE_SCAN_CHUNK][:2]
+    if not np.array_equal(out0.cpu().numpy(), y_scan):
+        raise AssertionError("the scan launch differs from render_tape's")
+    for K, (out, fin, _, _) in runs.items():
+        if not (torch.equal(out, out0) and torch.equal(fin, fin0)):
+            raise AssertionError(f"the scan at chunk {K} differs from chunk "
+                                 f"{kernels.TAPE_SCAN_CHUNK}")
+    st = varispeed.scan_state(fin0)
     _, fin = varispeed.tape_segment_render(adev, *sec_args)
     if tape_state(st)[:3] != (fin["whole"], fin["frac"], fin["speed"]):
         raise AssertionError(f"scan final state {tape_state(st)}, segment "
@@ -2687,13 +2776,12 @@ def tape_other_path(dev, card: str):
     p_b.section_reverse = [True] + list(p.section_reverse[1:])
     p_b.section_speeds = [0.5] + list(p.section_speeds[1:])
     p_b.inertia_enabled, p_b.inertia_amount = True, 80
+    full_b = tape.build_tape_program(adev, p_b, frames, device=dev)
     t0 = time.perf_counter()
     covers = {}
-    for label, pp, yf in (("config 1", p, y_scan),
-                          ("inertia, section 0 reversed", p_b, None)):
-        e, covers[label] = scan_windows(
-            label, tape.build_tape_program(adev, pp, frames, device=dev),
-            mod_q, yf)
+    for label, prog, yf in (("config 1", full, y_scan),
+                            ("inertia, section 0 reversed", full_b, None)):
+        e, covers[label] = scan_windows(label, prog, mod_q, yf)
         err = max(err, e)
     win_s = time.perf_counter() - t0
     c1, cb = covers["config 1"], covers["inertia, section 0 reversed"]
@@ -2708,34 +2796,46 @@ def tape_other_path(dev, card: str):
           f"the full-size launch's samples: {json.dumps(c1)}; with inertia "
           f"and section 0 reversed at speed 0.5: {json.dumps(cb)}; "
           f"{win_s:.1f} s", flush=True)
-    scan_ms = cuda_ms(lambda: varispeed.tape_scan_render(
-        *ins, full["consts"]), TIMED_SCANS)
+
     inertia = full["consts"].inertia_on
-    splice = full["consts"].splice_on and len(full["boundaries"]) > 0
-    sm_mhz = float(smi("clocks.max.sm").split()[0])
     S, B = len(full["starts"]), len(full["boundaries"])
-    nbytes = 4 * (n + 2 * frames + 4 * S + B + len(full["splice_env"]) + 10)
-    bound, bound_by = bound_ms(nbytes, TAPE_SCAN_FLOPS[inertia] * frames)
-    sass = tape_chain_sass(kernels.build("tape_scan"), splice, inertia)
-    chain_ms = sass["chain_ops"] * 4 * frames / (sm_mhz * 1e3)
-    issue_ms = sass["path_instructions"] * frames / (sm_mhz * 1e3)
-    print(f"tape_scan (config 1, T {frames}, inertia {inertia}): {db:.2f} "
-          f"dBFS from the segment engine, final whole/frac/speed equal "
-          f"{tape_state(st)[:3]}; launches {scan_launches}; kernel "
-          f"{scan_ms:.2f} ms ({scan_ms / frames * 1e6:.2f} ns a step, "
-          f"{scan_ms * sm_mhz * 1e3 / frames:.0f} cycles at {sm_mhz:.0f} "
-          f"MHz); the function's bound {bound:.4f} ms by {bound_by} "
-          f"({nbytes / 1e6:.2f} MB), {bound / scan_ms:.4%} of it reached; "
-          f"this one-warp design's own limits, from its SASS "
-          f"(tape_chain_kernel<{int(splice)},{int(inertia)}>, "
-          f"{sass['unrolled_steps']} steps unrolled): dependency chain "
-          f"{chain_ms:.2f} ms ({sass['chain_ops']:g} dependent instructions "
-          f"a common step x 4 cycles), {chain_ms / scan_ms:.1%} of it "
-          f"reached; issue {issue_ms:.2f} ms "
-          f"({sass['path_instructions']:g} instructions a common step at "
-          f"one a cycle); plain "
-          f"{plain_s[True] / SCAN_PLAIN_FRAMES * 1e6:.1f} us a sample "
-          f"(inertia on, {SCAN_PLAIN_FRAMES} frames) {card}", flush=True)
+    E = len(full["splice_env"])
+    bound, bound_by = bound_ms(4 * (n + 2 * frames + 4 * S + B + E + 10),
+                               TAPE_SCAN_FLOPS[inertia] * frames)
+    by_chunk = {}
+    for K, fn in calls.items():
+        by_chunk[K] = scan_timing(fn, runs[K], TIMED_KERNEL_RUNS,
+                                  KERNEL_LAUNCHES)
+        by_chunk[K].update(design_bytes_bound_ms=scan_design_bytes(
+            n, frames, K, S, B, E, by_chunk[K]["walked"]) / HBM_BYTES_S
+            * 1e3)
+    main = by_chunk[kernels.TAPE_SCAN_CHUNK]
+    ins_b = tape.scan_inputs(full_b, mod_q)
+    fn_b = scan_call(ins_b, full_b["consts"], kernels.TAPE_SCAN_CHUNK)
+    variant = scan_timing(fn_b, fn_b(), SCAN_VARIANT_RUNS, 1)
+    for K, t in by_chunk.items():
+        print(f"tape_scan (config 1, T {frames}, inertia {inertia}, chunk "
+              f"{K}): {t['ms']:.4f} ms; one call's passes: walk "
+              f"{t['walk_ms']:.4f} (the sums {t['sums_ms']:.4f}) + replay "
+              f"{t['replay_ms']:.4f}; chunks {t['chunks']}: jumped "
+              f"{t['jumped']} ({t['jumped_share']:.3%}), walked "
+              f"{t['walked']}; the walk's {t['decisions']} decisions, "
+              f"{t['walk_us_a_decision']:.3f} us each (the sums apart); the "
+              f"design's bytes "
+              f"{t['design_bytes_bound_ms']:.4f} ms, the function's bound "
+              f"{bound:.4f} ms by {bound_by} ({bound / t['ms']:.2%} of it "
+              f"reached) {card}", flush=True)
+    print(f"tape_scan (config 1): {db:.2f} dBFS from the segment engine, "
+          f"final whole/frac/speed equal {tape_state(st)[:3]}; launches "
+          f"{scan_launches}; bit-identical at chunks {list(SCAN_CHUNKS)}; "
+          f"the inertia variant (inertia 80, section 0 reversed at 0.5), "
+          f"chunk {kernels.TAPE_SCAN_CHUNK}: {variant['ms']:.4f} ms = walk "
+          f"{variant['walk_ms']:.4f} + replay {variant['replay_ms']:.4f}; "
+          f"jumped {variant['jumped']} of {variant['chunks']} "
+          f"({variant['jumped_share']:.3%}), walked {variant['walked']}; "
+          f"plain {plain_s[True] / SCAN_PLAIN_FRAMES * 1e6:.1f} us a "
+          f"sample (inertia on, {SCAN_PLAIN_FRAMES} frames) {card}",
+          flush=True)
     print(f"phase 10: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     row = {"name": "tape_scan", "route": "cuda",
@@ -2743,13 +2843,13 @@ def tape_other_path(dev, card: str):
            "replaces": "audio_suite_tpu/ops/varispeed.py:126 (tape_scan_"
                        "render's lax.scan; no Pallas kernel)",
            "launches": scan_launches["tape_scan"], "max_abs_err": err,
-           "ms": scan_ms, "plain_ms": plain_s[True] * 1e3,
+           "ms": main["ms"], "plain_ms": plain_s[True] * 1e3,
            "plain_frames": SCAN_PLAIN_FRAMES,
            "ms_at_plain_frames": small_ms[True],
            "bound_ms": bound, "bound_by": bound_by,
-           "chain_bound_ms": chain_ms, "chain_ops_a_step": sass["chain_ops"],
-           "issue_bound_ms": issue_ms,
-           "windows": covers, "library_ms": None}
+           "chunk": kernels.TAPE_SCAN_CHUNK, "by_chunk": by_chunk,
+           "inertia_variant": variant, "windows": covers,
+           "library_ms": None}
     by_path = {"trace": trace_launches["lerp_read"],
                "segment": seg_launches["lerp_read"]}
     return by_path, row
@@ -2782,6 +2882,11 @@ def main() -> int:
           flush=True)
     if sys.argv[1:2] == ["--scan-ab"]:
         print(json.dumps({"scan_ab": scan_ab(dev, card, sys.argv[2])}))
+        print(name_limit)
+        return 0
+    if sys.argv[1:2] == ["--tape-scan-ab"]:
+        print(json.dumps({"tape_scan_ab": tape_scan_ab(dev, card,
+                                                       sys.argv[2])}))
         print(name_limit)
         return 0
 

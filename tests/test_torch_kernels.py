@@ -743,10 +743,29 @@ def _scan_case(kind, device):
     return tape.scan_inputs(prog, mod_q), prog["consts"]
 
 
+def _scan_words(st):
+    return [int(v.view(torch.int32)) if v.dtype == torch.float32 else int(v)
+            for v in st]
+
+
+def _scan_at(ins, consts, state, chunk):
+    """The scan engine on the card at ``chunk`` steps a chunk: through
+    ``tape_scan_render`` at the default, else its wrapper's keyword."""
+    if chunk == kernels.TAPE_SCAN_CHUNK:
+        return varispeed.tape_scan_render(*ins, consts, state)
+    out, fin = kernels.tape_scan(
+        *ins, varispeed.scan_state_words(state, consts, ins[0].device),
+        anticlick_on=consts.anticlick_on, smooth_len=consts.smooth_len,
+        strength=consts.anticlick_strength, splice_on=consts.splice_on,
+        inertia_on=consts.inertia_on, alpha_q=consts.alpha_q, chunk=chunk)
+    return out, varispeed.scan_state(fin)
+
+
+@pytest.mark.parametrize("chunk", [256, 1024, 4096])
 @pytest.mark.parametrize("kind", ["inertia", "no inertia", "no gains",
                                   "wrap"])
 @pytest.mark.parametrize("carried", [False, True], ids=["start", "carried"])
-def test_tape_scan_kernel_bit_equal_to_plain(cuda, kind, carried):
+def test_tape_scan_kernel_bit_equal_to_plain(cuda, kind, carried, chunk):
     ins, consts = _scan_case(kind, cuda)
     state = None
     if carried:                  # inside the tape and inside an envelope
@@ -757,15 +776,56 @@ def test_tape_scan_kernel_bit_equal_to_plain(cuda, kind, carried):
                                    17, 3))))
     want, st_w = varispeed.tape_scan_render_plain(*ins, consts, state)
     n0 = kernels.tape_scan.launches
-    got, st_g = varispeed.tape_scan_render(*ins, consts, state)
+    got, st_g = _scan_at(ins, consts, state, chunk)
     torch.cuda.synchronize()
     assert kernels.tape_scan.launches == n0 + 1
     assert torch.equal(got, want)
-    assert [int(v.view(torch.int32)) if v.dtype == torch.float32 else int(v)
-            for v in st_g] == \
-        [int(v.view(torch.int32)) if v.dtype == torch.float32 else int(v)
-         for v in st_w]
+    assert _scan_words(st_g) == _scan_words(st_w)
     assert got.abs().max().item() > 0.1
+
+
+def _scan_against_model(cuda, case, chunk):
+    """The kernel on one of tests/test_torch_tape_scan_chunks.py's cases
+    at ``chunk``: bit-equal to the plain loop (samples and the five state
+    words), and its chunk records (start states, jumped or walked) and
+    walked count equal to the CPU model's."""
+    import test_torch_tape_scan_chunks as model
+    ins, consts, state = model._case(case, chunk)
+    st = None if state is None else model.scan_state(state)
+    want, st_w = varispeed.tape_scan_render_plain(*ins, consts, st)
+    _, _, recs = model.render_chunked(ins, consts, chunk, state)
+    dins = tuple(t.to(cuda) for t in ins)
+    out, fin, rec, nwalked = kernels.tape_scan(
+        *dins, varispeed.scan_state_words(st, consts, cuda),
+        anticlick_on=consts.anticlick_on, smooth_len=consts.smooth_len,
+        strength=consts.anticlick_strength, splice_on=consts.splice_on,
+        inertia_on=consts.inertia_on, alpha_q=consts.alpha_q, chunk=chunk,
+        return_records=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), want)
+    assert _scan_words(varispeed.scan_state(fin.cpu())) == \
+        _scan_words(st_w)
+    assert np.array_equal(rec.cpu().numpy(), model.record_words(recs))
+    assert int(nwalked[0]) == sum(k == "walked" for k, _ in recs)
+
+
+@pytest.mark.parametrize("chunk", [32, 256])
+@pytest.mark.parametrize("edge", ["first", "last"])
+def test_tape_scan_kernel_crossing_on_a_chunk_edge(cuda, chunk, edge):
+    """The section crossing (and its splice trigger) on a chunk's first or
+    last step."""
+    _scan_against_model(cuda, f"crossing on a chunk's {edge} step", chunk)
+
+
+@pytest.mark.parametrize("chunk", [32, 1024])
+@pytest.mark.parametrize("case", [
+    "boundary hit on a chunk's first step", "wrap",
+    "envelope across three chunks", "envelope ending on its index",
+    "smoke", "carried", "inertia", "speed 0", "reversed read in (-1, 0)",
+    "negative speed"])
+def test_tape_scan_kernel_matches_chunked_model(cuda, case, chunk):
+    """Every other case of the CPU model's tests on the card."""
+    _scan_against_model(cuda, case, chunk)
 
 
 def test_tape_scan_kernel_on_one_sample_and_none(cuda):
@@ -803,6 +863,9 @@ def test_tape_scan_kernel_rejects_what_it_does_not_take(cuda):
         kernels.tape_scan(*bad, st, **kw)
     with pytest.raises(ValueError):
         kernels.tape_scan(*ins, st[:4], **kw)
+    for chunk in (16, 100, 8192):                        # chunk lengths
+        with pytest.raises(ValueError):
+            kernels.tape_scan(*ins, st, chunk=chunk, **kw)
     big = torch.arange(4000, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):                      # past shared memory
         kernels.tape_scan(ins[0], ins[1], big, big, big.float(),
