@@ -45,7 +45,13 @@ Ported so far:
   5): host NumPy init and brush edits -> per step, counter-noise draws from
   per-cell hash keys computed once per ``simulate``, the spread stencil,
   ember landings, regrowth and the stats row, all on the device -> the
-  stats pulled once -> ``events/rules.py`` thresholds -> OSC packets.
+  stats pulled once -> ``events/rules.py`` thresholds -> OSC packets;
+- the parallel layer (``parallel/``): device meshes of the host's cards
+  or of a given device list, sharded batch renders with ordered
+  collectives, Microsound's batch render with a resumable manifest, the
+  time-sharded FIR convolution, the row-sharded CA (the dense step under
+  a sharding adapter), multi-process dispatch on ``torch.distributed``
+  and a multi-device dry run of every engine.
 
 Paths outside those slices raise ``NotImplementedError``.
 

@@ -441,16 +441,19 @@ STAT_KEYS = ("t", "trees", "burning", "ash", "empty", "ignitions",
 
 
 def _sim(carry: dict, n_steps: int, params: ModelParams, seed: int,
-         spatial: DenseSpatial | None = None):
+         spatial: DenseSpatial | None = None, terrain: dict | None = None):
     """The step loop (the JAX package's ``_sim_fn`` scan): ``n_steps``
     eager steps from ``carry`` (tensors on one device, ``t`` a host int),
     with the terrain fields and the per-cell hash keys computed once.
-    Returns (carry', stats int32 [n_steps, 8] on the device): nothing
-    inside waits for the card."""
+    ``terrain`` is computed from the carry's elevation when not given (a
+    row shard passes its block of the whole grid's: the gradient reads
+    across shard edges).  Returns (carry', stats int32 [n_steps, 8] on the
+    device): nothing inside waits for the card."""
     sp = spatial if spatial is not None else _DENSE_SPATIAL
     dev = carry["state"].device
     t0 = int(carry["t"])
-    terrain = terrain_static(params, carry["elev"])
+    if terrain is None:
+        terrain = terrain_static(params, carry["elev"])
     keys = noise.cell_key(seed, sp.cells(params.h, params.w, dev))
     rows = []
     for k in range(int(n_steps)):

@@ -16,8 +16,9 @@ Every render path of ``MicrosoundParams``:
 
 PyTorch runs eagerly, so the JAX package's single-chunk fused dispatch and
 its multi-chunk loop are one loop here (``render_device``).  The batch
-render (``batch_render``) and the image loader (``load_image_gray``) are
-not ported.
+render over a seeds x unfolds x stretches grid (``batch_render``) pipelines
+one job deep, with a resumable manifest.  The image loader
+(``load_image_gray``) is not ported.
 """
 from __future__ import annotations
 
@@ -973,3 +974,104 @@ def render(params: MicrosoundParams, ir_audio=None, img_gray=None, *,
     return render_program(params, prog, _space_kernels(params, ir_audio),
                           device=device, event_chunk=event_chunk,
                           pcm16=pcm16, want_micro_last=want_micro_last)
+
+
+def _start_pull(stereo: torch.Tensor, stream):
+    """Start copying a render to the host; returns a function that waits
+    for the copy and gives the NumPy array.  On the card the copy runs on
+    ``stream`` into pinned memory once the render's work on the current
+    stream is done, so the next job's render proceeds meanwhile (a plain
+    ``.cpu()`` would wait for every job already enqueued)."""
+    if stereo.device.type != "cuda":
+        return stereo.numpy
+    host = torch.empty(stereo.shape, dtype=stereo.dtype, pin_memory=True)
+    with torch.cuda.device(stereo.device):
+        rendered = torch.cuda.Event()
+        rendered.record()
+        with torch.cuda.stream(stream):
+            stream.wait_event(rendered)
+            host.copy_(stereo, non_blocking=True)
+            stereo.record_stream(stream)
+            copied = torch.cuda.Event()
+            copied.record(stream)
+
+    def wait() -> np.ndarray:
+        copied.synchronize()
+        return host.numpy()
+    return wait
+
+
+def batch_render(params: MicrosoundParams, out_dir: str,
+                 seeds=None, unfolds=None, stretches=None,
+                 ir_audio=None, img_gray=None, manifest_path=None,
+                 progress=None, *, device="cuda") -> list[str]:
+    """Batch render over a seeds x unfolds x stretches grid
+    (main_v2.py:1524-1596; microsound.py:1218) on ``device``, with a
+    resumable manifest (``parallel.batch.BatchManifest``): jobs marked
+    done are skipped and their paths returned, a job that fails is marked
+    failed with its error while the others go on.  One job deep: job k's
+    render is dispatched, then job k-1 is pulled and written as a float
+    WAV.  Returns the written WAV paths."""
+    import os
+
+    from ..parallel.batch import BatchManifest
+    from ..utils import io as audio_io
+
+    seeds = list(seeds) if seeds else [params.seed]
+    unfolds = list(unfolds) if unfolds else [params.time_unfold]
+    stretches = list(stretches) if stretches else [params.partial_stretch]
+
+    os.makedirs(out_dir, exist_ok=True)
+    jobs = [(s, u, st) for s in seeds for u in unfolds for st in stretches]
+    job_ids = [f"seed{s}_unfold{u:g}_stretch{st:g}" for s, u, st in jobs]
+    manifest = None
+    if manifest_path:
+        manifest = BatchManifest.open_or_create(manifest_path, job_ids)
+    dev = torch.device(device)
+    stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+
+    written = []
+    pending = None     # (pull, path, jid, meta): the 1-deep pipeline
+
+    def _flush(item):
+        pull, path, jid, meta = item
+        try:
+            audio_io.write_wav(path, pull(), int(params.base_sr))
+            written.append(path)
+            if manifest:
+                manifest.mark(jid, "done", events=meta["events"])
+        except Exception as e:   # per-item error isolation (SURVEY.md §5)
+            if manifest:
+                manifest.mark(jid, "failed",
+                              error=f"{type(e).__name__}: {e}")
+            else:
+                raise
+
+    for k, ((s, u, st), jid) in enumerate(zip(jobs, job_ids)):
+        path = os.path.join(out_dir, jid + ".wav")
+        if manifest and manifest.jobs.get(jid, {}).get("status") == "done":
+            written.append(path)
+            continue
+        p = MicrosoundParams.from_dict(params.to_dict())
+        p.seed = int(s)
+        p.time_unfold = float(u)
+        p.partial_stretch = float(st)
+        try:
+            # dispatch job k's render, THEN pull job k-1, whose copy runs
+            # on the side stream behind it while job k computes
+            stereo, meta = render(p, ir_audio=ir_audio, img_gray=img_gray,
+                                  device=dev)
+            item = (_start_pull(stereo, stream), path, jid, meta)
+            if pending is not None:
+                _flush(pending)
+            pending = item
+        except Exception as e:
+            if manifest:
+                manifest.mark(jid, "failed", error=f"{type(e).__name__}: {e}")
+            else:
+                raise
+        if progress:
+            progress(int(100 * (k + 1) / len(jobs)), jid)
+    if pending is not None:
+        _flush(pending)
+    return written

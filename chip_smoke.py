@@ -52,7 +52,15 @@ phases; any failure raises and the exit code is non-zero.  The paths:
   reverse, age, a marker added and removed, inertia, a splice gap, a seek,
   anti-click and a retime; 13 segments) through
   ``models.tape.render_tape_trace``, and config 1 through
-  ``render_tape``'s segment and scan engines.
+  ``render_tape``'s segment and scan engines;
+- the parallel layer: config 3 as a batch of two seeds x two stretches
+  through ``models.microsound.batch_render`` (and a stick-slip batch),
+  the Forest Fire CA at 220 x 160 row-sharded over one card repeated 4
+  and 8 times through ``parallel.ca.simulate_sharded``, a time-sharded
+  FIR convolution at config 3's length through
+  ``parallel.timeline.sharded_fir_conv``, the engine dry run
+  ``parallel.dryrun.dryrun_multichip`` and the multi-process self-test of
+  ``parallel.distributed``.
 
 Phases:
 
@@ -179,7 +187,28 @@ Phases:
    f32 operations), its design's own bytes (``scan_design_bytes``) and
    the walk's decisions (``scan_decisions``); the
    same for the inertia variant at full size; and the plain version's
-   time a sample.
+   time a sample;
+11. the parallel layer: config 3's batch (seeds 5 and 6 x stretches 4
+   and 2, a manifest) with every launch counted (one overlap-add a job),
+   each WAV bit-equal to a single render on the card, a second call that
+   resumes and renders nothing, a job made to fail (its WAV path a
+   directory) marked failed while the others finish, and a stick-slip
+   batch of two seeds (``grain_scan.cu``'s fused kernel), each bit-equal
+   to its single render; the batch's wall beside the same four jobs
+   rendered, pulled and written one after another, in turns; the sharded
+   CA on ``[cuda:0] * 4`` (120 steps) and ``* 8`` (40) bit-identical to
+   the dense ``simulate`` in the stats and the four planes, with embers
+   and fire in several shards, its steps per second beside the dense
+   engine's; the timeline conv of 768 000 samples over ``[cuda:0] * 8``
+   with config 3's ER (x) IR kernel and one longer than a block, each
+   within 1e-5 relative of ``space.fft_convolve_causal``;
+   ``dryrun_multichip(4, [cuda:0] * 4)`` with its launches counted (the
+   overlap-add, the clamp read and the scrub read); the two-process
+   self-test (each rank's jobs on cuda:0, gathered through gloo) and a
+   world-size-1 NCCL group's ``all_gather`` of a CUDA tensor, each in
+   processes of their own; and the phase's duration.  The batch's and the
+   dry run's launches join their kernels' rows under
+   ``launches_by_path``.
 
 Every kernel's launch count is set to 0 just before a path is driven and
 read just after it.  A kernel is timed twice.  Warm (its ``ms``, the
@@ -2855,6 +2884,329 @@ def tape_other_path(dev, card: str):
     return by_path, row
 
 
+# ---- phase 11: the parallel layer: Microsound batch renders, the sharded
+# CA, the sharded timeline, the dry run, multi-process dispatch
+
+PAR_STRETCHES = (4.0, 2.0)  # the batch's stretches (config 3's x4, then x2)
+PAR_TIMED_ROUNDS = 2       # batch, sequential, sequential, batch: x this
+PAR_CA = ((4, 120), (8, 40))   # (shards on one card, steps)
+PAR_CONV_N = 768000        # config 3's length: 4 s at 192 kHz
+PAR_CONV_SHARDS = 8
+PAR_LONG_K = 200000        # a kernel longer than one of its 96 000 blocks
+PAR_DRYRUN = 4             # dryrun_multichip's mesh
+
+
+def batch_jobs(p, seeds) -> list:
+    """The batch's params in job order (seeds x stretches)."""
+    from audio_suite_torch.models import microsound as ms
+    return [ms.MicrosoundParams.from_dict(dict(p.to_dict(), seed=s,
+                                               partial_stretch=st))
+            for s in seeds for st in PAR_STRETCHES]
+
+
+def sequential_renders(jobs, ir, dev, out_dir: str) -> np.ndarray:
+    """Each job rendered, pulled and written before the next; returns the
+    host ms of each part (the render's call, the pull, the write) summed
+    over the jobs."""
+    from audio_suite_torch.models import microsound as ms
+    from audio_suite_torch.utils import io as audio_io
+    parts = np.zeros(3)
+    for k, q in enumerate(jobs):
+        t0 = time.perf_counter()
+        y, _ = ms.render(q, ir_audio=ir, device=dev)
+        t1 = time.perf_counter()
+        host = y.cpu().numpy()
+        t2 = time.perf_counter()
+        audio_io.write_wav(os.path.join(out_dir, f"seq{k}.wav"), host,
+                           int(q.base_sr))
+        parts += np.array([t1 - t0, t2 - t1, time.perf_counter() - t2]) * 1e3
+    return parts
+
+
+def burnt_shards(state: np.ndarray, state0: np.ndarray, D: int) -> int:
+    """Shards holding a cell that burnt (fire or ash, from a tree) in the
+    run: more than one shows the fire crossed shard rows."""
+    from audio_suite_torch.models import forestfire as ff
+    burnt = (state != state0) & ((state == ff.FIRE) | (state == ff.ASH))
+    rows = np.nonzero(burnt.any(axis=1))[0]
+    return len({int(r) // (state.shape[0] // D) for r in rows})
+
+
+def parallel_batch(dev, card: str, tmp: str) -> tuple:
+    """Phase 11's Microsound batches; returns (the config-3 batch's launch
+    counts, the stick-slip batch's)."""
+    from audio_suite_torch.models import microsound as ms
+    from audio_suite_torch.parallel import batch as pb
+    from audio_suite_torch.utils import io as audio_io
+
+    p, ir = config3(full=True)
+    seeds = (p.seed, p.seed + 1)
+    jobs = batch_jobs(p, seeds)
+    man = os.path.join(tmp, "m.json")
+    reset_counts()
+    paths = ms.batch_render(p, os.path.join(tmp, "b"), seeds=seeds,
+                            stretches=PAR_STRETCHES, ir_audio=ir,
+                            manifest_path=man, device=dev)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if len(paths) != len(jobs) or pb.BatchManifest.load(man).pending():
+        raise AssertionError(f"batch wrote {len(paths)} of {len(jobs)} "
+                             "jobs")
+    if counts["overlap_add"] != len(jobs):
+        raise AssertionError(f"batch launched {counts['overlap_add']} "
+                             f"overlap-adds for {len(jobs)} jobs")
+    for q, path in zip(jobs, paths):
+        want, _ = ms.render(q, ir_audio=ir, device=dev)
+        got, sr = audio_io.read_wav(path)
+        if sr != p.base_sr or not np.array_equal(got, want.cpu().numpy()):
+            raise AssertionError(f"{os.path.basename(path)} differs from "
+                                 "the single render on the card")
+    reset_counts()
+    again = ms.batch_render(p, os.path.join(tmp, "b"), seeds=seeds,
+                            stretches=PAR_STRETCHES, ir_audio=ir,
+                            manifest_path=man, device=dev)
+    resumed = read_counts()["overlap_add"]
+    if again != paths or resumed:
+        raise AssertionError(f"the resumed batch rendered ({resumed} "
+                             "overlap-adds)")
+    print(f"batch: config 3 x seeds {list(seeds)} x stretches "
+          f"{list(PAR_STRETCHES)}: {len(paths)} WAVs bit-equal to single "
+          f"renders on the card; launches {counts}; resumed with 0 renders",
+          flush=True)
+
+    # a job made to fail (its WAV path is a directory) is marked failed,
+    # the others finish
+    out2, man2 = os.path.join(tmp, "f"), os.path.join(tmp, "f.json")
+    bad = os.path.join(out2, f"seed{seeds[1]}_unfold100_stretch4.wav")
+    os.makedirs(bad)
+    done = ms.batch_render(p, out2, seeds=(seeds[0], seeds[1],
+                                           seeds[1] + 1),
+                           stretches=PAR_STRETCHES[:1], ir_audio=ir,
+                           manifest_path=man2, device=dev)
+    m2 = pb.BatchManifest.load(man2)
+    failed = {j: v for j, v in m2.jobs.items() if v["status"] != "done"}
+    if (len(done) != 2 or list(failed) != [os.path.basename(bad)[:-4]]
+            or "IsADirectoryError" not in failed[list(failed)[0]]["error"]):
+        raise AssertionError(f"failed-job isolation: {m2.jobs}")
+    print(f"batch: a job made to fail is marked failed "
+          f"({failed[list(failed)[0]]['error'][:40]}...), the other "
+          f"{len(done)} done", flush=True)
+
+    # stick-slip: grain_scan.cu's fused kernel on the batch's path
+    pss = ms.MicrosoundParams.from_dict(dict(p.to_dict(),
+                                             gen_mode="Stick–slip friction"))
+    reset_counts()
+    ss_paths = ms.batch_render(pss, os.path.join(tmp, "s"), seeds=seeds,
+                               ir_audio=ir, device=dev)
+    torch.cuda.synchronize()
+    ss_counts = read_counts()
+    if len(ss_paths) != 2 or ss_counts["stick_slip_noise_scan"] < 2 \
+            or ss_counts["stick_slip_scan"]:
+        raise AssertionError(f"stick-slip batch: {len(ss_paths)} WAVs, "
+                             f"launches {ss_counts}")
+    for s, path in zip(seeds, ss_paths):
+        want, _ = ms.render(ms.MicrosoundParams.from_dict(
+            dict(pss.to_dict(), seed=s)), ir_audio=ir, device=dev)
+        if not np.array_equal(audio_io.read_wav(path)[0],
+                              want.cpu().numpy()):
+            raise AssertionError(f"stick-slip {path} differs from its "
+                                 "single render")
+    print(f"batch: stick-slip x seeds {list(seeds)} bit-equal to single "
+          f"renders; launches {ss_counts}", flush=True)
+
+    # the batch's wall beside the same jobs one after another, in turns
+    walls = {"batch": [], "sequential": []}
+    parts = []
+    for r in range(PAR_TIMED_ROUNDS):
+        for kind in ("batch", "sequential", "sequential", "batch"):
+            d = os.path.join(tmp, f"t{r}{kind}{len(walls[kind])}")
+            os.makedirs(d)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "batch":
+                ms.batch_render(p, d, seeds=seeds, stretches=PAR_STRETCHES,
+                                ir_audio=ir, device=dev)
+            else:
+                parts.append(sequential_renders(jobs, ir, dev, d))
+            walls[kind].append((time.perf_counter() - t0) * 1e3)
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    split = np.median(np.stack(parts), axis=0)
+    print(f"timing: {len(jobs)}-job config-3 batch wall median "
+          f"{med['batch']:.2f} ms (in turns {walls['batch']}) against "
+          f"{len(jobs)} sequential render + pull + write {med['sequential']:.2f}"
+          f" ms ({walls['sequential']}): the pipeline "
+          f"{'overlapped' if med['batch'] < med['sequential'] else 'did not overlap'}"
+          f" ({med['sequential'] - med['batch']:.2f} ms); the sequential "
+          f"jobs' host time: render calls {split[0]:.2f} ms, pulls "
+          f"{split[1]:.2f} ms, WAV writes {split[2]:.2f} ms {card}",
+          flush=True)
+    med["sequential_split_ms"] = dict(zip(("render", "pull", "write"),
+                                          split.tolist()))
+    return counts, ss_counts, med
+
+
+def parallel_ca(dev, card: str) -> dict:
+    """Phase 11's sharded CA at config 5's size on one card repeated."""
+    from audio_suite_torch.parallel import batch as pb
+    from audio_suite_torch.parallel import ca
+    out = {}
+    for D, steps in PAR_CA:
+        model, _, _ = config5_fire(dev)
+        carry0 = {k: np.array(v) for k, v in model._np.items()}
+        mesh = pb.make_mesh(D, axis_names=("sp",), devices=[dev] * D)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, stats = ca.simulate_sharded(model.params, carry0, steps, mesh,
+                                           seed=model.seed)
+        t_sh = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dense = model.simulate(steps)
+        t_de = time.perf_counter() - t0
+        if not np.array_equal(stats, dense):
+            raise AssertionError(f"sharded CA on {D} shards: stats differ "
+                                 "from the dense engine")
+        for k in ("state", "fuel", "moisture", "age"):
+            if not np.array_equal(carry[k].cpu().numpy(), model._np[k]):
+                raise AssertionError(f"sharded CA on {D} shards: {k} "
+                                     "differs from the dense engine")
+        shards = burnt_shards(model._np["state"], carry0["state"], D)
+        embers = int(stats[:, 6].sum())
+        if embers == 0 or shards < 2:
+            raise AssertionError(f"sharded CA on {D} shards: {embers} "
+                                 f"embers, fire in {shards} shards")
+        out[D] = {"steps": steps, "sharded_steps_s": steps / t_sh,
+                  "dense_steps_s": steps / t_de}
+        print(f"ca: {D} shards of {model.params.h // D} rows, {steps} steps "
+              f"bit-identical to dense (stats and the state, fuel, moisture "
+              f"and age planes); {embers} embers, fire in {shards} of {D} "
+              f"shards; sharded {steps / t_sh:.1f} steps/s against dense "
+              f"{steps / t_de:.1f} steps/s {card}", flush=True)
+    return out
+
+
+def parallel_conv(dev, card: str):
+    """Phase 11's timeline conv at config 3's length on 8 shards."""
+    from audio_suite_torch.models import microsound as ms
+    from audio_suite_torch.ops import space
+    from audio_suite_torch.parallel import batch as pb
+    from audio_suite_torch.parallel import timeline as tl
+    p, ir = config3(full=True)
+    er_ir, _, _ = ms._space_kernels(p, ir)
+    rng = np.random.default_rng(17)
+    x = rng.standard_normal(PAR_CONV_N).astype(np.float32)
+    long_k = (rng.standard_normal(PAR_LONG_K)
+              * np.exp(-np.arange(PAR_LONG_K) / 40000.0)).astype(np.float32)
+    mesh = pb.make_mesh(PAR_CONV_SHARDS, devices=[dev] * PAR_CONV_SHARDS)
+    for label, k in (("config 3's ER (x) IR", er_ir), ("long", long_k)):
+        got = tl.sharded_fir_conv(x, k, mesh)
+        ms_sh = cuda_ms(lambda: tl.sharded_fir_conv(x, k, mesh), 3)
+        want = space.fft_convolve_causal(torch.as_tensor(x, device=dev),
+                                         torch.as_tensor(k, device=dev))
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        if not rel <= 1e-5:
+            raise AssertionError(f"timeline conv ({label}, K {len(k)}) "
+                                 f"{rel:.3g} relative")
+        print(f"timeline: {PAR_CONV_N} samples over {PAR_CONV_SHARDS} "
+              f"shards, {label} kernel K {len(k)} "
+              f"({(len(k) - 1) // (PAR_CONV_N // PAR_CONV_SHARDS) + 1} "
+              f"hops): {rel:.3g} relative to fft_convolve_causal on the "
+              f"card; {ms_sh:.2f} ms a call (host upload included) {card}",
+              flush=True)
+
+
+def parallel_distributed(card: str):
+    """Phase 11's multi-process checks: the two-process self-test (each
+    rank's jobs on cuda:0, gathered through gloo) and a world-size-1 NCCL
+    group that all_gathers a CUDA tensor, each in its own processes."""
+    import socket
+    import tempfile
+
+    def port() -> int:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", NCCL_SOCKET_IFNAME="lo",
+               PYTHONPATH=REPO)
+    with tempfile.TemporaryDirectory() as tmp:
+        coord = f"127.0.0.1:{port()}"
+        outs = [os.path.join(tmp, f"p{i}.json") for i in range(2)]
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "audio_suite_torch.parallel.distributed",
+             coord, "2", str(i), outs[i], "cuda"], env=env, cwd=REPO,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for i in range(2)]
+        try:
+            res = []
+            for pr, out in zip(procs, outs):
+                so, se = pr.communicate(timeout=300)
+                if pr.returncode != 0:
+                    raise AssertionError(f"self-test rank failed "
+                                         f"rc={pr.returncode}:\n{so}\n{se}")
+                with open(out) as f:
+                    res.append(json.load(f))
+        finally:
+            for pr in procs:
+                if pr.poll() is None:
+                    pr.kill()
+                    pr.communicate()
+    for r in res:
+        if not (r["ok"] and r["process_count"] == 2
+                and r["global_devices"] == 4 and r["mesh_shape"] == [2, 2]
+                and r["device"] == "cuda"):
+            raise AssertionError(f"self-test: {r}")
+    print(f"distributed: two-process self-test on cuda:0, gathered through "
+          f"gloo: max_err {res[0]['max_err']:.3g}, mix_err "
+          f"{res[0]['mix_err']:.3g}, mesh {res[0]['mesh_shape']}", flush=True)
+    code = (
+        "import torch, torch.distributed as dist\n"
+        f"dist.init_process_group('nccl', init_method='tcp://127.0.0.1:"
+        f"{port()}', world_size=1, rank=0)\n"
+        "x = torch.arange(8, dtype=torch.float32, device='cuda:0')\n"
+        "parts = [torch.empty_like(x)]\n"
+        "dist.all_gather(parts, x)\n"
+        "torch.cuda.synchronize()\n"
+        "assert torch.equal(parts[0], x), parts\n"
+        "dist.destroy_process_group()\n"
+        "print('nccl ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode != 0 or "nccl ok" not in r.stdout:
+        raise AssertionError(f"NCCL world-size-1 all_gather failed "
+                             f"rc={r.returncode}:\n{r.stdout}\n{r.stderr}")
+    print("distributed: a world-size-1 NCCL group all_gathered a CUDA "
+          "tensor; more than one NCCL rank needs a card each (NCCL refuses "
+          "two ranks on one card), so it waits for a machine with several "
+          "cards", flush=True)
+
+
+def parallel_path(dev, card: str) -> dict:
+    """Phase 11: the parallel layer; returns each path's launch counts
+    ("batch": the config-3 and stick-slip batches, "dryrun") and the
+    figures."""
+    import tempfile
+    from audio_suite_torch.parallel import dryrun
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        counts, ss_counts, walls = parallel_batch(dev, card, tmp)
+    ca_rates = parallel_ca(dev, card)
+    parallel_conv(dev, card)
+    reset_counts()
+    notes = dryrun.dryrun_multichip(PAR_DRYRUN, devices=[dev] * PAR_DRYRUN)
+    torch.cuda.synchronize()
+    dry = read_counts()
+    for k in ("overlap_add", "lerp_read", "scrub_read"):
+        if not dry[k]:
+            raise AssertionError(f"the dry run did not launch {k}")
+    print(f"dryrun: {len(notes)} checks on [cuda:0] x {PAR_DRYRUN}; "
+          f"launches {dry}", flush=True)
+    parallel_distributed(card)
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    batch = {k: counts[k] + ss_counts[k] for k in counts}
+    return {"batch": batch, "dryrun": dry, "batch_walls_ms": walls,
+            "ca_steps_s": ca_rates}
+
+
 def main() -> int:
     # ---- 1. probe
     if not torch.cuda.is_available():
@@ -2911,6 +3263,20 @@ def main() -> int:
     lr_paths, ts_row = tape_other_path(dev, card)
     lr_row["launches_by_path"] = dict(config1=lr_row["launches"], **lr_paths)
     lr_row["launches"] += sum(lr_paths.values())
+    # ---- 11. the parallel layer: each path's launches join its rows
+    par = parallel_path(dev, card)
+    sr_row.setdefault("launches_by_path", {"config2": sr_row["launches"]})
+    ss_row = next(r for r in scan_rows_
+                  if r["name"] == "stick_slip_noise_scan")
+    ss_row.setdefault("launches_by_path",
+                      {"microsound_all_paths": ss_row["launches"]})
+    for row, name in ((oa_row, "overlap_add"), (lr_row, "lerp_read"),
+                      (sr_row, "scrub_read"),
+                      (ss_row, "stick_slip_noise_scan")):
+        for path in ("batch", "dryrun"):
+            if par[path][name]:
+                row["launches_by_path"][path] = par[path][name]
+                row["launches"] += par[path][name]
     rows = [oa_row, lr_row, sr_row] + scan_rows_ + [ts_row]
 
     print(json.dumps({"kernels": rows}))

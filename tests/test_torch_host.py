@@ -302,7 +302,8 @@ def _port_sources():
 
 def test_import_walk_covers_every_subpackage():
     walked = {os.path.relpath(p, REPO) for p in _port_sources()}
-    for sub in ("events", "kernels", "models", "ops", "plugins", "utils"):
+    for sub in ("events", "kernels", "models", "ops", "parallel", "plugins",
+                "utils"):
         assert os.path.join("audio_suite_torch", sub, "__init__.py") \
             in walked, sub
     assert os.path.join("audio_suite_torch", "plugins", "host.py") in walked
@@ -310,6 +311,9 @@ def test_import_walk_covers_every_subpackage():
     assert os.path.join("audio_suite_torch", "models", "forestfire.py") \
         in walked
     assert os.path.join("audio_suite_torch", "events", "rules.py") in walked
+    for mod in ("batch", "ca", "distributed", "dryrun", "timeline"):
+        assert os.path.join("audio_suite_torch", "parallel", f"{mod}.py") \
+            in walked, mod
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -333,6 +337,7 @@ def test_port_imports_nothing_of_the_jax_package(path):
 # every entry point of the port, old and new: (module, qualified name)
 _ENTRY_POINTS = [
     ("microsound", "render"), ("microsound", "render_program"),
+    ("microsound", "batch_render"),
     ("tape", "build_tape_program"), ("tape", "build_tape_program_cached"),
     ("tape", "render_tape"), ("tape", "render_to_wav"),
     ("tape", "render_tape_trace"), ("tape", "build_trace_programs"),
@@ -380,6 +385,63 @@ def test_every_model_function_with_a_device_is_an_entry_point():
             if "device" in params:
                 assert ((mod, name) in _ENTRY_POINTS
                         or (mod, name) in _DEVICE_HELPERS), (mod, name)
+
+
+@pytest.mark.parametrize("mod", ["batch", "ca", "distributed", "dryrun",
+                                 "timeline"])
+def test_parallel_functions_with_a_device_default_to_the_card(mod):
+    import importlib
+    import inspect
+    m = importlib.import_module(f"audio_suite_torch.parallel.{mod}")
+    for name, obj in vars(m).items():
+        if (name.startswith("_") or not callable(obj)
+                or getattr(obj, "__module__", None) != m.__name__):
+            continue
+        params = inspect.signature(obj).parameters
+        if "device" in params:
+            assert params["device"].default == "cuda", (mod, name)
+
+
+_JAX_BLOCKED_PARALLEL = """
+import sys, tempfile
+sys.modules["jax"] = None          # any `import jax` now raises ImportError
+sys.modules["audio_suite_tpu"] = None   # and so does the JAX package
+sys.path.insert(0, {repo!r})
+import numpy as np, torch
+torch.set_num_threads(1)
+from audio_suite_torch.models import forestfire as ff
+from audio_suite_torch.models import microsound as ms
+from audio_suite_torch.parallel import batch as pb, ca
+params = ff.ModelParams(w=24, h=16)
+carry = ff.init_state(params, seed=4)
+carry["state"][6:10, 8:14] = ff.FIRE
+mesh = pb.make_mesh(4, axis_names=("sp",), devices=["cpu"] * 4)
+c2, stats = ca.simulate_sharded(params, carry, 2, mesh, seed=4)
+m = ff.ForestFireModel(params, seed=4, device="cpu")
+m._state = carry
+assert np.array_equal(stats, m.simulate(2))
+assert np.array_equal(c2["state"].numpy(), m._np["state"])
+p = ms.MicrosoundParams.from_dict(dict(base_sr=8000, out_dur_s=0.2,
+                                       max_grains=8, er_cloud_on=False))
+with tempfile.TemporaryDirectory() as d:
+    paths = ms.batch_render(p, d, seeds=[1, 2], manifest_path=d + "/m.json",
+                            device="cpu")
+    assert len(paths) == 2 and not pb.BatchManifest.load(
+        d + "/m.json").pending()
+assert not any(m.split(".")[0] in ("jax", "audio_suite_tpu")
+               for m in sys.modules if sys.modules[m] is not None)
+print("ok")
+"""
+
+
+def test_sharded_ca_and_batch_render_with_jax_blocked():
+    import subprocess
+    import sys
+    r = subprocess.run([sys.executable, "-c",
+                        _JAX_BLOCKED_PARALLEL.format(repo=REPO)],
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
 
 
 def _pre_repair_normal(seed, idx, stream=0):

@@ -906,3 +906,58 @@ def test_tape_engines_on_cuda_match_cpu(cuda):
         want = tape.render_tape(audio, p, 3000, device="cpu", engine=engine)
         assert 20 * np.log10(max(np.abs(got.astype(np.float64)
                                         - want).max(), 1e-300)) <= -120.0
+
+
+def test_microsound_batch_render_on_cuda_equals_single_renders(cuda,
+                                                               tmp_path):
+    """The pipelined batch (each job's pull on a side stream into pinned
+    memory) writes exactly the card's single renders, one overlap-add
+    launch a job, and resumes without one."""
+    from audio_suite_torch.utils import io as audio_io
+    rng = np.random.default_rng(11)
+    ir = (rng.standard_normal(8192) * np.exp(-np.arange(8192) / 800.0)) \
+        .astype(np.float32)
+    p = ms.MicrosoundParams.from_dict(dict(
+        base_sr=48000, out_dur_s=0.5, time_unfold=100.0,
+        gen_mode="Noise burst", micro_ms=1.0, grains_per_sec=60.0,
+        max_grains=24, partial_stretch=4.0, bandlimit_on=True,
+        bandlimit_out_hz=18000.0, bandlimit_roll_hz=2500.0,
+        er_cloud_on=True, space_ir_on=True, stereo_on=True,
+        bp_density="", bp_unfold="", bp_cutoff="", bp_stretch="", seed=5))
+    man = str(tmp_path / "m.json")
+    n0 = kernels.overlap_add.launches
+    paths = ms.batch_render(p, str(tmp_path), seeds=[5, 6],
+                            stretches=[4.0, 2.0], ir_audio=ir,
+                            manifest_path=man, device=cuda)
+    assert kernels.overlap_add.launches == n0 + 4 and len(paths) == 4
+    for (s, st), path in zip([(5, 4.0), (5, 2.0), (6, 4.0), (6, 2.0)],
+                             paths):
+        q = ms.MicrosoundParams.from_dict(dict(p.to_dict(), seed=s,
+                                               partial_stretch=st))
+        want, _ = ms.render(q, ir_audio=ir, device=cuda)
+        got, _ = audio_io.read_wav(path)
+        np.testing.assert_array_equal(got, want.cpu().numpy())
+    n0 = kernels.overlap_add.launches
+    assert ms.batch_render(p, str(tmp_path), seeds=[5, 6],
+                           stretches=[4.0, 2.0], ir_audio=ir,
+                           manifest_path=man, device=cuda) == paths
+    assert kernels.overlap_add.launches == n0
+
+
+@pytest.mark.parametrize("shards", [4, 8])
+def test_sharded_ca_on_one_card_equals_dense(cuda, shards):
+    """parallel/ca.py on a mesh of one card repeated: bit-identical to the
+    dense engine on the card at config 5's CA size."""
+    from audio_suite_torch.models import forestfire as ff
+    from audio_suite_torch.parallel import batch as pb
+    from audio_suite_torch.parallel import ca
+    params = ff.ModelParams()
+    model = ff.ForestFireModel(params, seed=2, device=cuda)
+    model.ignite_at(110, 80, radius=4)
+    carry0 = {k: np.array(v) for k, v in model._np.items()}
+    mesh = pb.make_mesh(shards, axis_names=("sp",), devices=[cuda] * shards)
+    carry, stats = ca.simulate_sharded(params, carry0, 40, mesh, seed=2)
+    np.testing.assert_array_equal(stats, model.simulate(40))
+    for k in ("state", "fuel", "moisture", "age"):
+        np.testing.assert_array_equal(carry[k].cpu().numpy(), model._np[k])
+    assert stats[:, 6].sum() > 0
