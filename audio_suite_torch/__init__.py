@@ -5,7 +5,7 @@ its module layout (``ops/noise.py``, ``ops/spectral.py``,
 ``models/microsound.py``, ...) so each function has an obvious counterpart,
 and is held against it by ``tests/test_torch_*.py``.
 
-Ported so far:
+It ports every path of the JAX package, the ``bench`` harness aside:
 
 - Microsound, every render path (the bench's high-rate transient-field
   configuration and the reference app's factory settings): host event
@@ -51,9 +51,14 @@ Ported so far:
   collectives, Microsound's batch render with a resumable manifest, the
   time-sharded FIR convolution, the row-sharded CA (the dense step under
   a sharding adapter), multi-process dispatch on ``torch.distributed``
-  and a multi-device dry run of every engine.
-
-Paths outside those slices raise ``NotImplementedError``.
+  and a multi-device dry run of every engine;
+- the surfaces: the seven-subcommand CLI (``python -m
+  audio_suite_torch.cli --device cuda|cpu ...``, its renders traced on
+  ``torch.profiler`` with ``--trace DIR``; ``bench`` has no harness in
+  the port yet and exits non-zero), ``utils/profiling.py`` and
+  ``utils/metrics.py``, Microsound's ``load_image_gray``, Pattern Lab's
+  "Python Script" generator, and ``plugins/torch_cells.py``, the device
+  grid cells (JAX's threefry draws ported bit-exact in ``ops/threefry.py``).
 
 Conventions:
 

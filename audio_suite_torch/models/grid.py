@@ -200,13 +200,14 @@ MAX_EVENTS = 20000
 MAX_OCCURRENCES = 10000
 
 
-def collect_restart_events(project: GridProject,
-                           master_dur: float) -> List[set]:
+def collect_restart_events(project: GridProject, master_dur: float,
+                           device="cuda") -> List[set]:
     """For every track x pattern occurrence x py cell with ``event()``,
     build the context dict, call it, and resolve ``{"restart_tracks": ...,
     "delay": s}`` into per-track sets of master-sample reset indices.  The
     reference's missing ``import math`` (grid_audio_app.py:630) is fixed,
-    as in the JAX package."""
+    as in the JAX package.  The context's "device" is the render's, for
+    cells that compute on the device (``plugins/torch_cells.py``)."""
     tracks = project.tracks
     sr = project.sample_rate
     n_tracks = len(tracks)
@@ -263,6 +264,7 @@ def collect_restart_events(project: GridProject,
                     "master_duration": float(master_dur),
                     "tracks": [{"index": i, "name": tt.name}
                                for i, tt in enumerate(tracks)],
+                    "device": str(device),
                 }
                 try:
                     ev = mod.event(ctx)
@@ -329,9 +331,11 @@ def render_cell_audio(cell: CellSource, sr: int, duration: float,
 
 def render_track_pattern(project: GridProject, ti: int, t: Track,
                          divs: List[float], pat_dur: float,
-                         sync_pts_master: List[float]) -> np.ndarray:
+                         sync_pts_master: List[float],
+                         device="cuda") -> np.ndarray:
     """Sum cells at cumulative-start offsets, clip +-1
-    (grid_audio_app.py:758-784)."""
+    (grid_audio_app.py:758-784); the cells' context carries the render's
+    "device"."""
     sr = project.sample_rate
     pat_n = max(1, int(round(pat_dur * sr)))
     pat = np.zeros(pat_n, np.float32)
@@ -351,6 +355,7 @@ def render_track_pattern(project: GridProject, ti: int, t: Track,
             "track_offset": float(t.start_offset_seconds),
             "track_loop_to_master": bool(t.loop_to_master),
             "track_sync_points_master": list(sync_pts_master),
+            "device": str(device),
         }
         seg = render_cell_audio(cell, sr, float(dur), ctx)
         end_samp = min(pat_n, start_samp + len(seg))
@@ -567,13 +572,14 @@ def mod_speed_for_track(placed_src: np.ndarray, smoothing_ms: float,
     return envdet.speed_q_from_fix_np(inc)
 
 
-def _build_mix_program(project: GridProject):
+def _build_mix_program(project: GridProject, device="cuda"):
     """Host pre-pass shared by both engines: restart events, per-track
-    patterns, reset tables and the static placement config."""
+    patterns (the cells run with ``device`` in their context), reset
+    tables and the static placement config."""
     sr = project.sample_rate
     master_dur = project.master.duration(project.tracks)
     n_total = int(round(master_dur * sr))
-    restarts = collect_restart_events(project, master_dur)
+    restarts = collect_restart_events(project, master_dur, device)
 
     rows = []
     for ti, t in enumerate(project.tracks):
@@ -584,7 +590,7 @@ def _build_mix_program(project: GridProject):
         if divs and pat_dur > 1e-9:
             t.ensure_cells(len(divs))
             pat = render_track_pattern(project, ti, t, divs, pat_dur,
-                                       sync_pts)
+                                       sync_pts, device)
         reset = set(int(round(p * sr)) for p in sync_pts if p >= 0.0)
         reset |= restarts[ti]
         reset = np.asarray(sorted(r for r in reset if 0 <= r < n_total),
@@ -724,14 +730,16 @@ def _project_cache_key(project: GridProject) -> bytes:
     return h.digest()
 
 
-def build_mix_program_cached(project: GridProject) -> dict:
+def build_mix_program_cached(project: GridProject, device="cuda") -> dict:
     """``_build_mix_program`` memoized on project content: {"n_total",
     "rows", "prep"}, where "prep" holds the prepared device mixes by
-    (pcm16, device).  LRU-bounded at 4 projects."""
+    (pcm16, device).  LRU-bounded at 4 projects.  The key holds no device:
+    a program built for one device's render (its cells run there) serves
+    a render on another."""
     key = _project_cache_key(project)
     entry = _PROGRAM_CACHE.pop(key, None)
     if entry is None:
-        n_total, rows = _build_mix_program(project)
+        n_total, rows = _build_mix_program(project, device)
         entry = {"n_total": n_total, "rows": rows, "prep": {}}
     _PROGRAM_CACHE[key] = entry
     while len(_PROGRAM_CACHE) > 4:
@@ -752,7 +760,7 @@ def render_mixdown(project: GridProject, return_tracks: bool = False,
     integers and floats); ``return_tracks`` also takes the host engine,
     which builds every placed track anyway.  pcm16=True (device engine, no
     normalize): int16 from the device."""
-    entry = build_mix_program_cached(project)
+    entry = build_mix_program_cached(project, device)
     n_total, rows = entry["n_total"], entry["rows"]
 
     if engine == "device" and not return_tracks:

@@ -17,8 +17,8 @@ Every render path of ``MicrosoundParams``:
 PyTorch runs eagerly, so the JAX package's single-chunk fused dispatch and
 its multi-chunk loop are one loop here (``render_device``).  The batch
 render over a seeds x unfolds x stretches grid (``batch_render``) pipelines
-one job deep, with a resumable manifest.  The image loader
-(``load_image_gray``) is not ported.
+one job deep, with a resumable manifest.  ``load_image_gray`` reads the
+image-scanline mode's image through PIL, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -186,6 +186,17 @@ def save_preset(params: MicrosoundParams, path: str):
     by the reference app and by either package's load_preset."""
     with open(path, "w") as f:
         json.dump(params.to_dict(), f, indent=2, sort_keys=True)
+
+
+def load_image_gray(path: str):
+    """Load an image as a grayscale uint8-range array for the Image
+    scanline generator (main_v2.py:1415-1429 uses Qt's grayscale
+    conversion; this uses PIL's 'L' mode — same ITU-R 601 luma).  PIL is
+    imported here, so a machine without it raises ``ImportError`` only
+    when an image is asked for."""
+    from PIL import Image
+    img = Image.open(path).convert("L")
+    return np.asarray(img, dtype=np.float64)
 
 
 def _next_pow2(n: int) -> int:

@@ -14,8 +14,7 @@ algorithmic patterns through an FM + PSG voice bank.
   kernel on the card); then the tanh master bus and optionally PCM16.
 
 Entry points run on ``device="cuda"`` unless the caller passes another
-device.  The "Python Script" generator is not ported and raises
-``NotImplementedError``.
+device.
 """
 from __future__ import annotations
 
@@ -44,9 +43,6 @@ SCALES = {
     'phrygian': [0, 1, 3, 5, 7, 8, 10],
     'glass': [0, 2, 5, 7, 9],
 }
-
-_QUEUE11 = "ROADMAP queue 1 item 11, surfaces"
-
 
 # ----------------------------------------------------------------------------
 # Channel presets (app/renderer.py:45-71, app/synth_fm.py:38-60,
@@ -349,14 +345,18 @@ def list_generators() -> list[str]:
 
 
 def generate(name: str, cfg: RenderConfig, **kwargs) -> list[NoteEvent]:
-    """Dispatch by (fuzzy) name (app/patterns.py:188-214).  The "Python
-    Script" generator, which loads a user script through the plugin host,
-    is not ported."""
+    """Dispatch by (fuzzy) name (app/patterns.py:188-214); "Python Script"
+    loads ``script_path``'s ``entry`` through the plugin host and calls it
+    as ``fn(cfg=cfg, **kwargs)``."""
     name = (name or '').strip().lower()
     if 'python' in name:
-        raise NotImplementedError(
-            f"the Python Script generator (the plugin host) is not ported "
-            f"({_QUEUE11})")
+        from ..plugins.host import load_script_generator
+        script_path = kwargs.pop('script_path', '')
+        entry = kwargs.pop('entry', 'generate')
+        if not script_path:
+            raise ValueError("Python Script generator requires gen.script_path")
+        fn = load_script_generator(Path(script_path), entry)
+        return fn(cfg=cfg, **kwargs)
     if 'glass' in name:
         return pattern_glass_cells(cfg, **kwargs)
     if 'fibonacci' in name:

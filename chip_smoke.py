@@ -60,7 +60,10 @@ phases; any failure raises and the exit code is non-zero.  The paths:
   FIR convolution at config 3's length through
   ``parallel.timeline.sharded_fir_conv``, the engine dry run
   ``parallel.dryrun.dryrun_multichip`` and the multi-process self-test of
-  ``parallel.distributed``.
+  ``parallel.distributed``;
+- the surfaces: every subcommand of the port's CLI on those
+  configurations, the stick-slip preset, the Pattern Lab example script
+  and a grid project of the device cells ``plugins/torch_cells.py``.
 
 Phases:
 
@@ -208,7 +211,34 @@ Phases:
    world-size-1 NCCL group's ``all_gather`` of a CUDA tensor, each in
    processes of their own; and the phase's duration.  The batch's and the
    dry run's launches join their kernels' rows under
-   ``launches_by_path``.
+   ``launches_by_path``;
+12. the surfaces: the port's CLI (``audio_suite_torch.cli.main.main``)
+   driven in-process with ``--device cuda`` at the bench's sizes, each
+   run with every launch counted (``cli_path``): ``microsound`` on config
+   3 saved as a preset with its IR as a float WAV (once more with
+   ``--trace``: the trace JSON holds the ``microsound.render`` range and
+   CUDA kernel events, and the overlap-add's symbol is looked for among
+   them) and on ``examples/presets/friction_forest.json`` (stick-slip);
+   ``tape`` on config 1's tape as a WAV with its markers, speeds, reverse
+   flags, age and target time; ``scrub`` on config 2's tape as a WAV, 30
+   s, three heads, its drags; ``patternlab`` with ``--generator "Glass
+   Cells"`` and with ``--script examples/patterns/prime_echoes.py``;
+   ``grid`` on config 5's grid half saved as a project and on the
+   ``grid`` golden's project with ``plugins/torch_cells.py`` as its cell
+   (the program memo cleared first, so the cells run on the card);
+   ``forestfire --steps 480 --seed 2 --ignite 110,80 --rules
+   examples/demo_rules.json --stats-out``; ``bench``, which must exit
+   non-zero.  Each WAV is bit-equal to the same render made through the
+   engine's API on the card (inputs read back from their WAVs) and
+   written the same way; forestfire's stats JSON and printed OSC events
+   equal the API run's; the three grid goldens pass with
+   ``torch_cells.py`` as their cell, rendered on the card (and the card
+   against the CPU printed); one ``python -m audio_suite_torch.cli
+   microsound`` subprocess with ``jax`` and the JAX package blocked
+   writes the same WAV; each run's wall and realtime factor, and the
+   phase's duration.  The CLI's launches join the overlap-add, clamp
+   read, scrub read and fused stick-slip rows under
+   ``launches_by_path["cli"]``.
 
 Every kernel's launch count is set to 0 just before a path is driven and
 read just after it.  A kernel is timed twice.  Warm (its ``ms``, the
@@ -3207,6 +3237,382 @@ def parallel_path(dev, card: str) -> dict:
             "ca_steps_s": ca_rates}
 
 
+# ---- phase 12: the surfaces: the port's CLI driven in-process at the
+# bench's sizes, each subcommand's WAV held against the same render made
+# through the engine's API on the card and written the same way
+CLI_CHUNK = 120          # the CLI's forestfire chunk (cli/main.py)
+
+_CLI_MODULE_RUN = """
+import runpy, sys
+sys.modules["jax"] = None          # any `import jax` now raises ImportError
+sys.modules["audio_suite_tpu"] = None   # and so does the JAX package
+sys.path.insert(0, {repo!r})
+sys.argv = ["audio_suite_torch.cli"] + {argv!r}
+runpy.run_module("audio_suite_torch.cli", run_name="__main__")
+assert not any(m.split(".")[0] in ("jax", "audio_suite_tpu")
+               for m in sys.modules if sys.modules[m] is not None)
+"""
+
+
+def cli_run(argv: list, stdout=None) -> tuple:
+    """One in-process ``audio_suite_torch.cli`` call on the card with every
+    launch counted; returns (launch counts, wall s)."""
+    import contextlib
+    from audio_suite_torch.cli import main as cli
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout or sys.stdout):
+        cli.main(["--device", "cuda"] + argv)
+    torch.cuda.synchronize()
+    return read_counts(), time.perf_counter() - t0
+
+
+def same_wav(label: str, cli_wav: str, api_audio, sr: int, tmp: str,
+             subtype: str = "FLOAT"):
+    """The CLI's WAV against the API render written the same way: the
+    two files' bytes equal."""
+    from audio_suite_torch.utils import io as audio_io
+    api_wav = os.path.join(tmp, f"api_{label}.wav")
+    audio_io.write_wav(api_wav, api_audio, sr, subtype=subtype)
+    with open(cli_wav, "rb") as a, open(api_wav, "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError(f"cli {label}: its WAV differs from the "
+                                 f"API render on the card")
+
+
+def cli_report(label: str, counts: dict, wall: float, seconds: float,
+               card: str) -> dict:
+    used = {k: v for k, v in counts.items() if v}
+    print(f"cli {label}: WAV bit-equal to the API render on the card; "
+          f"wall {wall * 1e3:.1f} ms for {seconds:.3f} s of audio (RTF "
+          f"{seconds / wall:.1f}x, host build, launches, pull and WAV "
+          f"write included); hand-kernel launches {used or 'none'} {card}",
+          flush=True)
+    return counts
+
+
+def trace_kernels(trace_dir: str) -> tuple:
+    """The one trace JSON under ``trace_dir``: (its range names, its CUDA
+    kernel names)."""
+    (path,) = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = {e.get("name") for e in events
+              if e.get("cat") == "user_annotation"}
+    kernels_ = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return ranges, kernels_
+
+
+def torch_cells_project(name: str):
+    """tests/test_goldens.py:261-307's grid project ``name`` with
+    ``audio_suite_torch/plugins/torch_cells.py`` as its user cell, as the
+    port's project; and its engine."""
+    from audio_suite_torch.models import grid
+    cell = grid.CellSource(kind="py", path=os.path.join(
+        REPO, "audio_suite_torch", "plugins", "torch_cells.py"))
+    empty = grid.CellSource()
+    t0 = grid.Track(name="pulse", mode="tempo_bpm", bpm=120.0,
+                    beats_per_measure=4, measures=1, loop_to_master=True,
+                    uniform_n=8, cells=[cell, empty] * 4)
+    t1 = grid.Track(name="tone", mode="duration", duration_seconds=2.0,
+                    loop_to_master=True, uniform_n=4, gain_db=-6.0,
+                    mod_source_index=0, mod_amount=0.6, mod_smoothing_ms=40.0,
+                    sync_points_text="1.0, 2.6",
+                    cells=[cell, empty, empty, cell])
+    if name == "grid_pydiv":
+        t0.division_mode = "python"
+        t0.python_code = ("def divisions(total):\n"
+                          "    w = [1.0, 2.0, 1.0, 3.0, 1.0, 2.0]\n"
+                          "    s = sum(w)\n"
+                          "    return [total * x / s for x in w]\n")
+        t0.ensure_cells(6)
+    if name == "grid_host":
+        t1.start_offset_seconds = -0.35
+    project = grid.GridProject(
+        sample_rate=22050, normalize=False,
+        master=grid.MasterClock(mode="fixed_seconds", fixed_seconds=4.0),
+        tracks=[t0, t1])
+    return project, "host" if name == "grid_host" else "device"
+
+
+def cli_microsound(dev, card: str, tmp: str) -> dict:
+    """``microsound``: config 3 as a preset with its IR as a WAV (once
+    more with ``--trace``, and once as ``python -m`` with JAX blocked),
+    and the stick-slip preset ``friction_forest.json``."""
+    from audio_suite_torch.models import microsound as ms
+    from audio_suite_torch.utils import io as audio_io
+    counts = {}
+    p, ir = config3(full=True)
+    preset, ir_wav = os.path.join(tmp, "c3.json"), os.path.join(tmp, "ir.wav")
+    ms.save_preset(p, preset)
+    audio_io.write_wav(ir_wav, ir, p.base_sr)
+    out = os.path.join(tmp, "c3.wav")
+    argv = ["microsound", preset, "-o", out, "--ir", ir_wav]
+    c, wall = cli_run(argv)
+    if not c["overlap_add"]:
+        raise AssertionError("cli microsound launched no overlap-add")
+    q = ms.load_preset(preset)
+    ir_back, _ = audio_io.load_wav_mono(ir_wav)
+    y, _ = ms.render(q, ir_audio=ir_back, device=dev)
+    same_wav("microsound", out, y.cpu().numpy(), q.base_sr, tmp)
+    counts["microsound"] = cli_report("microsound config 3", c, wall,
+                                      q.out_dur_s, card)
+
+    trace_dir = os.path.join(tmp, "trace")
+    traced = os.path.join(tmp, "c3_traced.wav")
+    c, wall = cli_run(["--trace", trace_dir, "microsound", preset, "-o",
+                       traced, "--ir", ir_wav])
+    counts["microsound_traced"] = c
+    with open(out, "rb") as a, open(traced, "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("the traced microsound WAV differs")
+    ranges, names = trace_kernels(trace_dir)
+    if "microsound.render" not in ranges or not names:
+        raise AssertionError(f"trace: ranges {sorted(ranges)}, "
+                             f"{len(names)} CUDA kernel events")
+    oa_sym = sum("overlap_add_kernel" in n for n in names)
+    print(f"cli microsound --trace: the trace JSON holds the "
+          f"microsound.render range and {len(names)} CUDA kernel events; "
+          f"overlap_add_kernel among them: {bool(oa_sym)} ({oa_sym} "
+          f"events; {c['overlap_add']} counted); wall {wall * 1e3:.1f} ms "
+          f"traced {card}", flush=True)
+
+    sub = os.path.join(tmp, "c3_sub.wav")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", _CLI_MODULE_RUN.format(
+        repo=REPO, argv=["--device", "cuda", "microsound", preset, "-o", sub,
+                         "--ir", ir_wav])],
+        capture_output=True, text=True, timeout=300, cwd=tmp)
+    if r.returncode != 0:
+        raise AssertionError(f"python -m audio_suite_torch.cli with JAX "
+                             f"blocked exited {r.returncode}:\n{r.stderr}")
+    with open(out, "rb") as a, open(sub, "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("the python -m run's WAV differs")
+    print(f"cli microsound as python -m audio_suite_torch.cli, jax and "
+          f"audio_suite_tpu blocked: exit 0, the same WAV; "
+          f"{time.perf_counter() - t0:.1f} s with the process start",
+          flush=True)
+
+    path = os.path.join(REPO, "examples", "presets", "friction_forest.json")
+    out = os.path.join(tmp, "ff.wav")
+    c, wall = cli_run(["microsound", path, "-o", out])
+    if not (c["stick_slip_noise_scan"] and c["overlap_add"]):
+        raise AssertionError(f"cli stick-slip preset launches {c}")
+    q = ms.load_preset(path)
+    y, _ = ms.render(q, device=dev)
+    same_wav("friction_forest", out, y.cpu().numpy(), q.base_sr, tmp)
+    counts["microsound_stick_slip"] = cli_report(
+        "microsound friction_forest.json", c, wall, q.out_dur_s, card)
+    return counts
+
+
+def cli_tape_scrub(dev, card: str, tmp: str) -> dict:
+    """``tape``: config 1's tape as a WAV with its markers, speeds, reverse
+    flags, age and target time; ``scrub``: config 2's tape as a WAV, 30 s,
+    three heads, its drags (the CLI has no jump)."""
+    from audio_suite_torch.models import scrub, tape
+    from audio_suite_torch.utils import io as audio_io
+    counts = {}
+    audio, p, frames = config1(TAPE_SECONDS)
+    sr = p.sample_rate
+    wav = os.path.join(tmp, "tape.wav")
+    audio_io.write_wav(wav, audio, sr)
+    marks = ",".join(repr(m / sr) for m in p.markers)
+    speeds = "1.0,2.0,0.5,4.0,0.25,1.5"
+    reverse = ",".join(str(int(r)) for r in p.section_reverse)
+    out = os.path.join(tmp, "tape_out.wav")
+    c, wall = cli_run(["tape", wav, "-o", out, "--markers", marks,
+                       "--speeds", speeds, "--reverse", reverse,
+                       "--tape-age", str(p.tape_age), "--target-time",
+                       repr(TAPE_SECONDS)])
+    if not c["lerp_read"]:
+        raise AssertionError("cli tape launched no lerp_read")
+    back, sr_back = audio_io.load_wav_mono(wav)
+    q = tape.TapeParams(sample_rate=sr_back, tape_age=p.tape_age)
+    q.markers = sorted(int(float(t) * sr_back) for t in marks.split(","))
+    q.section_speeds = [float(v) for v in speeds.split(",")]
+    q.section_reverse = [bool(int(v)) for v in reverse.split(",")]
+    q.section_speeds = tape.fit_to_target_time(q, len(back), TAPE_SECONDS)
+    if q.markers != p.markers or q.section_speeds != p.section_speeds:
+        raise AssertionError("the CLI's tape params are not config 1's")
+    y = tape.render_tape(back, q, device=dev)
+    if y.shape != (frames,):
+        raise AssertionError(f"tape render gave {y.shape}")
+    same_wav("tape", out, y, sr, tmp, subtype="PCM_16")
+    counts["tape"] = cli_report("tape config 1", c, wall, frames / sr, card)
+
+    audio = bench_audio(48000, SCRUB_TAPE)
+    wav = os.path.join(tmp, "scrub_tape.wav")
+    audio_io.write_wav(wav, audio, 48000)
+    drags = ((2.0, 8.0, 3.0), (10.0, -14.0, 4.0), (20.0, 4.0, 5.0))
+    out = os.path.join(tmp, "scrub_out.wav")
+    argv = ["scrub", wav, "-o", out, "--seconds", repr(SCRUB_SECONDS),
+            "--heads", "3"]
+    for d in drags:
+        argv += ["--drag", ":".join(repr(v) for v in d)]
+    c, wall = cli_run(argv)
+    if not c["scrub_read"]:
+        raise AssertionError("cli scrub launched no scrub_read")
+    back, sr = audio_io.load_wav_mono(wav)
+    cfg = scrub.ScrubConfig(sample_rate=sr, head_count=3)
+    trace = scrub.scripted_gesture_trace(
+        int(SCRUB_SECONDS * sr / cfg.block_size), sr, drag_events=list(drags),
+        base_speed=0.5, key_events=[], head_count=3)
+    y = scrub.render_scrub(back, cfg, trace, device=dev)
+    if y.shape != (SCRUB_FRAMES,):
+        raise AssertionError(f"scrub render gave {y.shape}")
+    same_wav("scrub", out, y, sr, tmp)
+    counts["scrub"] = cli_report("scrub config 2", c, wall,
+                                 SCRUB_FRAMES / sr, card)
+    return counts
+
+
+def cli_patternlab_grid(dev, card: str, tmp: str) -> dict:
+    """``patternlab``: Glass Cells and the example script prime_echoes.py
+    at the CLI's defaults (8 s); ``grid``: config 5's grid half as a
+    project file and the ``grid`` golden's project on torch_cells.py, with
+    the three torch_cells goldens on the card."""
+    from pathlib import Path
+    from audio_suite_torch.models import grid
+    from audio_suite_torch.models import patternlab as pl
+    from audio_suite_torch.plugins import host
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import test_goldens as tg
+    counts = {}
+    script = os.path.join(REPO, "examples", "patterns", "prime_echoes.py")
+    for label, gen in (("patternlab", ["--generator", "Glass Cells"]),
+                       ("patternlab_script", ["--script", script])):
+        out = os.path.join(tmp, f"{label}.wav")
+        c, wall = cli_run(["patternlab", "-o", out, *gen])
+        if not c["overlap_add"]:
+            raise AssertionError(f"cli {label} launched no overlap-add")
+        cfg = pl.RenderConfig(seconds=8.0, bpm=120.0, seed=1)
+        if label == "patternlab":
+            events = pl.generate("Glass Cells", cfg)
+        else:
+            host.ensure_pattern_lab_examples_importable()
+            events = host.load_script_generator(Path(script))(cfg)
+        y, _ = pl.render(events, cfg, device=dev)
+        same_wav(label, out, y, cfg.sample_rate, tmp)
+        counts[label] = cli_report(f"{label} {' '.join(gen[:1])}", c, wall,
+                                   cfg.seconds, card)
+
+    path = os.path.join(tmp, "c5.json")
+    grid.save_project(config5(GRID_SECONDS), path)
+    out = os.path.join(tmp, "c5.wav")
+    c, wall = cli_run(["grid", path, "-o", out])
+    project = grid.load_project(path)
+    same_wav("grid", out, grid.render_mixdown(project, device=dev),
+             project.sample_rate, tmp)
+    counts["grid"] = cli_report("grid config 5", c, wall, GRID_SECONDS, card)
+
+    # torch_cells.py: the memo is cleared before each render, so the
+    # cells run on the render's device
+    project, _ = torch_cells_project("grid")
+    path = os.path.join(tmp, "cells.json")
+    grid.save_project(project, path)
+    out = os.path.join(tmp, "cells.wav")
+    grid._PROGRAM_CACHE.clear()
+    c, wall = cli_run(["grid", path, "-o", out])
+    grid._PROGRAM_CACHE.clear()
+    y = grid.render_mixdown(grid.load_project(path), device=dev)
+    same_wav("grid_torch_cells", out, y, project.sample_rate, tmp)
+    counts["grid_torch_cells"] = cli_report("grid on torch_cells.py", c,
+                                            wall, 4.0, card)
+    with open(tg.GOLDEN_PATH) as f:
+        goldens = json.load(f)
+    devs = []
+    for name in ("grid", "grid_pydiv", "grid_host"):
+        project, engine = torch_cells_project(name)
+        grid._PROGRAM_CACHE.clear()
+        y = grid.render_mixdown(project, engine=engine, device=dev)
+        tg._compare(name, tg._fingerprint(y), goldens[name])
+        grid._PROGRAM_CACHE.clear()
+        y_cpu = grid.render_mixdown(project, engine=engine, device="cpu")
+        gap = dbfs(torch.from_numpy(y), torch.from_numpy(y_cpu))
+        devs.append(f"{name} " + ("bit-equal" if np.array_equal(y, y_cpu)
+                                  else f"{gap:.1f}"))
+    grid._PROGRAM_CACHE.clear()
+    print(f"cli grid goldens on torch_cells.py, cells on the card: grid, "
+          f"grid_pydiv and grid_host pass at tests/test_goldens.py's "
+          f"tolerances (1e-4, 0.01 dB); the card's render against the "
+          f"same on the CPU (dBFS where it differs): "
+          f"{', '.join(devs)}", flush=True)
+    return counts
+
+
+def cli_forestfire_bench(dev, card: str, tmp: str) -> dict:
+    """``forestfire``: config 5's CA (seed 2, ignited at (110, 80)) for 480
+    steps with ``examples/demo_rules.json``, its stats JSON and printed OSC
+    events equal to the same run through the API; ``bench`` exits
+    non-zero."""
+    import io
+    from audio_suite_torch.events import rules as R
+    from audio_suite_torch.models import forestfire as ff
+    rules_path = os.path.join(REPO, "examples", "demo_rules.json")
+    stats_path = os.path.join(tmp, "stats.json")
+    printed = io.StringIO()
+    c, wall = cli_run(["forestfire", "--steps", str(FIRE_STEPS), "--seed",
+                       "2", "--ignite", "110,80", "--rules", rules_path,
+                       "--stats-out", stats_path], stdout=printed)
+    model = ff.ForestFireModel(ff.ModelParams(), seed=2, device=dev)
+    model.ignite_at(110, 80, radius=4)
+    eng, rec = R.WatchEngine(), R.OSCRecorder()
+    with open(rules_path) as f:
+        eng.set_rules([R.ThresholdRule(**r) for r in json.load(f)])
+    for done in range(0, FIRE_STEPS, CLI_CHUNK):
+        eng.run_stream(ff.stats_rows_to_dicts(
+            model.simulate(min(CLI_CHUNK, FIRE_STEPS - done))), rec.send)
+    with open(stats_path) as f:
+        stats = json.load(f)
+    lines = printed.getvalue().splitlines()
+    want = [f"{len(rec.messages)} OSC events (no --osc target; use "
+            f"host:port to emit over UDP)"] + \
+        [f"  {addr} {list(a)}" for addr, a in rec.messages[:20]]
+    if stats != json.loads(json.dumps(model.get_stats())) or lines != want:
+        raise AssertionError(f"cli forestfire: stats {stats} / printed "
+                             f"{lines[:3]} differ from the API run")
+    if not (stats["t"] == FIRE_STEPS and rec.messages):
+        raise AssertionError(f"cli forestfire: {stats}, no OSC event")
+    used = {k: v for k, v in c.items() if v}
+    print(f"cli forestfire: {FIRE_STEPS} steps, stats JSON and "
+          f"{len(rec.messages)} OSC events equal to the API run on the "
+          f"card; wall "
+          f"{wall * 1e3:.1f} ms ({FIRE_STEPS / wall:.1f} steps/s against "
+          f"the 30 Hz tick); hand-kernel launches {used or 'none'} {card}",
+          flush=True)
+    try:
+        cli_run(["bench"])
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    if code in (0, None) or "11a" not in str(code):
+        raise AssertionError(f"cli bench exited with {code!r}")
+    print(f"cli bench: exits non-zero ({code})", flush=True)
+    return {"forestfire": c}
+
+
+def cli_path(dev, card: str) -> dict:
+    """Phase 12: the port's CLI on the card, every subcommand; returns
+    the hand-kernel launches summed over the CLI's own runs."""
+    import tempfile
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = cli_microsound(dev, card, tmp)
+        runs.update(cli_tape_scrub(dev, card, tmp))
+        runs.update(cli_patternlab_grid(dev, card, tmp))
+        runs.update(cli_forestfire_bench(dev, card, tmp))
+    total = {k: sum(c[k] for c in runs.values()) for k in WRAPPERS}
+    for k in ("overlap_add", "lerp_read", "scrub_read",
+              "stick_slip_noise_scan"):
+        if not total[k]:
+            raise AssertionError(f"the CLI runs launched no {k}")
+    print(f"cli: launches over the {len(runs)} runs {total}", flush=True)
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return total
+
+
 def main() -> int:
     # ---- 1. probe
     if not torch.cuda.is_available():
@@ -3277,6 +3683,13 @@ def main() -> int:
             if par[path][name]:
                 row["launches_by_path"][path] = par[path][name]
                 row["launches"] += par[path][name]
+    # ---- 12. the surfaces: the CLI's launches join the four rows
+    cli = cli_path(dev, card)
+    for row, name in ((oa_row, "overlap_add"), (lr_row, "lerp_read"),
+                      (sr_row, "scrub_read"),
+                      (ss_row, "stick_slip_noise_scan")):
+        row["launches_by_path"]["cli"] = cli[name]
+        row["launches"] += cli[name]
     rows = [oa_row, lr_row, sr_row] + scan_rows_ + [ts_row]
 
     print(json.dumps({"kernels": rows}))

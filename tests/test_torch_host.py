@@ -302,8 +302,8 @@ def _port_sources():
 
 def test_import_walk_covers_every_subpackage():
     walked = {os.path.relpath(p, REPO) for p in _port_sources()}
-    for sub in ("events", "kernels", "models", "ops", "parallel", "plugins",
-                "utils"):
+    for sub in ("cli", "events", "kernels", "models", "ops", "parallel",
+                "plugins", "utils"):
         assert os.path.join("audio_suite_torch", sub, "__init__.py") \
             in walked, sub
     assert os.path.join("audio_suite_torch", "plugins", "host.py") in walked
@@ -347,7 +347,8 @@ _ENTRY_POINTS = [
     ("scrub", "render_scrub"), ("scrub", "scrub_render_kernel"),
     ("scrub", "scrub_render_segments"), ("scrub", "device_program"),
     ("grid", "render_mixdown"), ("grid", "export_wav"),
-    ("grid", "prepare_device_mix"),
+    ("grid", "prepare_device_mix"), ("grid", "build_mix_program_cached"),
+    ("grid", "collect_restart_events"), ("grid", "render_track_pattern"),
     ("forestfire", "ForestFireModel"), ("forestfire", "carry_from_state"),
 ]
 # not entry points: a helper that moves arrays to the device it is given,

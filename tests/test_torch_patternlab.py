@@ -19,8 +19,8 @@ Same inputs, made with numpy from a seed, through both packages:
   ``test_full_render_parity`` configs, a JAX-prepared program carried
   across and a preset, against the JAX render; a golden-size render
   against the JAX render run op by op; the three Pattern Lab golden
-  fingerprints; empty and all-clamped batches; the unported Python Script
-  generator; a render with jax and the JAX package blocked.
+  fingerprints; empty and all-clamped batches; the Python Script
+  generator's events; a render with jax and the JAX package blocked.
 
 Why the renders are held to the jitted JAX render at -60 dBFS and not
 -100: XLA's CPU compiler contracts two multiply-adds of the fused voice
@@ -719,9 +719,20 @@ def test_empty_batch_renders_silence(events):
 
 
 def test_python_script_generator_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 11"):
-        tpl.generate("Python Script", tpl.RenderConfig(seconds=1.0),
-                     script_path="gen.py")
+    """The Python Script generator, ported since: without a script it
+    raises as JAX's does; with one, its events equal JAX's
+    (tests/test_torch_surfaces.py renders the examples' scripts)."""
+    with pytest.raises(ValueError, match="script_path"):
+        tpl.generate("Python Script", tpl.RenderConfig(seconds=1.0))
+    script = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples", "patterns",
+        "clock_drift_trio.py")
+    got = tpl.generate("Python Script", tpl.RenderConfig(seconds=1.0),
+                       script_path=script, root=50)
+    want = jpl.generate("Python Script", jpl.RenderConfig(seconds=1.0),
+                        script_path=script, root=50)
+    assert got and [dataclasses.astuple(e) for e in got] == \
+        [dataclasses.astuple(e) for e in want]
 
 
 def test_default_device_is_the_card():
