@@ -11,6 +11,7 @@ subcommands, with the same flags and defaults, rendering on a CUDA card
         "Glass Cells" --seconds 8
     python -m audio_suite_torch.cli grid project.json -o out.wav
     python -m audio_suite_torch.cli forestfire --steps 900 --osc 127.0.0.1:9000
+    python -m audio_suite_torch.cli bench
     python -m audio_suite_torch.cli --device cpu microsound -o out.wav
 
 ``--device`` (default ``cuda``) is every engine's ``device``: without a
@@ -19,8 +20,8 @@ asked.  ``--trace DIR`` writes a ``torch.profiler`` trace of the run
 (``utils/profiling.device_trace``), each render inside a
 ``<subcommand>.render`` range.  Each render is pulled to the host once and
 written as a float WAV, the tape's as PCM16, as the JAX CLI writes them.
-``bench`` has no harness in the port yet (ROADMAP.md item 11a) and exits
-with an error.
+``bench`` runs the port's harness (``audio_suite_torch/bench.py``) on
+``--device``; ``bench --smoke`` at its CPU-test sizes.
 """
 from __future__ import annotations
 
@@ -70,11 +71,11 @@ def cmd_microsound(args):
         return
     with annotate("microsound.render"):
         stereo, meta = ms.render(p, ir_audio=ir, img_gray=img,
-                                 device=args.device)
+                                 progress=progress, device=args.device)
         stereo = stereo.cpu().numpy()
     out = args.out or "microsound.wav"
     audio_io.write_wav(out, stereo, p.base_sr)
-    print(f"{out}: {stereo.shape[0] / p.base_sr:.2f}s @ {p.base_sr} Hz, "
+    print(f"\n{out}: {stereo.shape[0] / p.base_sr:.2f}s @ {p.base_sr} Hz, "
           f"{meta['events']} events, design SR {meta['design_sr_base']} Hz")
 
 
@@ -259,10 +260,13 @@ def cmd_forestfire(args):
             print(f"  {addr} {list(a)}")
 
 
-def cmd_bench(_args):
-    raise SystemExit("audio_suite_torch: bench has no harness in the port "
-                     "yet (ROADMAP.md item 11a); bench.py runs the JAX "
-                     "package's")
+def cmd_bench(args):
+    from .. import bench
+
+    code = bench.main(["--device", args.device]
+                      + (["--smoke"] if args.smoke else []))
+    if code:
+        raise SystemExit(code)
 
 
 def build_parser():
@@ -357,8 +361,10 @@ def build_parser():
     f.add_argument("--stats-out")
     f.set_defaults(fn=cmd_forestfire)
 
-    b = sub.add_parser("bench", help="the benchmark harness (not in the "
-                                     "port yet)")
+    b = sub.add_parser("bench", help="the benchmark harness: bench.py's "
+                                     "five configurations, one JSON line")
+    b.add_argument("--smoke", action="store_true",
+                   help="bench.py's BENCH_SMOKE=1 sizes")
     b.set_defaults(fn=cmd_bench)
     return ap
 

@@ -730,13 +730,24 @@ def _project_cache_key(project: GridProject) -> bytes:
     return h.digest()
 
 
+def _canonical_device(device) -> torch.device:
+    """``device`` with its index filled in, so that "cuda" and "cuda:0"
+    (the current card) are one device."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        idx = torch.cuda.current_device() if torch.cuda.is_available() else 0
+        dev = torch.device("cuda", idx)
+    return dev
+
+
 def build_mix_program_cached(project: GridProject, device="cuda") -> dict:
-    """``_build_mix_program`` memoized on project content: {"n_total",
-    "rows", "prep"}, where "prep" holds the prepared device mixes by
-    (pcm16, device).  LRU-bounded at 4 projects.  The key holds no device:
-    a program built for one device's render (its cells run there) serves
-    a render on another."""
-    key = _project_cache_key(project)
+    """``_build_mix_program`` memoized on project content and the render's
+    device: {"n_total", "rows", "prep"}, where "prep" holds the prepared
+    device mixes by pcm16.  LRU-bounded at 4 entries.  The device is in
+    the key because the cells run on it (``context["device"]``): a
+    program whose cells ran on one device never serves a render on
+    another, so each device a project renders on pays one host build."""
+    key = (_project_cache_key(project), _canonical_device(device))
     entry = _PROGRAM_CACHE.pop(key, None)
     if entry is None:
         n_total, rows = _build_mix_program(project, device)
@@ -765,12 +776,11 @@ def render_mixdown(project: GridProject, return_tracks: bool = False,
 
     if engine == "device" and not return_tracks:
         want_pcm16 = pcm16 and not project.normalize
-        key = (want_pcm16, str(torch.device(device)))
-        prep = entry["prep"].get(key)
+        prep = entry["prep"].get(want_pcm16)
         if prep is None:
             prep = prepare_device_mix(n_total, rows, pcm16=want_pcm16,
                                       device=device)
-            entry["prep"][key] = prep
+            entry["prep"][want_pcm16] = prep
         mix = _device_mixdown(n_total, rows, prepared=prep)
         if want_pcm16:
             return mix

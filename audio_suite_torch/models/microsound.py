@@ -33,7 +33,8 @@ import torch
 from ..events.schedulers import generate_event_times
 from ..ops import (detmath, envelopes, exact_dft, generators, overlap_add,
                    space, spectral)
-from ..utils.breakpoints import eval_breakpoints_vec, parse_breakpoints
+from ..utils.breakpoints import (eval_breakpoints, eval_breakpoints_vec,
+                                parse_breakpoints)
 
 GEN_MODES = (
     "Gaussian click", "Dust impulses", "Noise burst", "Skewed transient",
@@ -215,6 +216,112 @@ _EVENT_N_FLOORS = {"Stick–slip friction": 64, "Micro-chaos": 64,
 _AUX_KEYS = ("dust_pos", "dust_amp", "dust_k", "dust_klen", "ck_pos",
              "ck_amp", "wl_f0", "wl_sigma", "wl_phase", "wl_shift", "frag",
              "frag_len", "res_f", "res_ph", "wg_d", "wg_g", "wg_m")
+
+
+def _event_n(mode: str, gen_sr: int, micro_ms: float, have_ir: bool) -> int:
+    """One event's grain length: the mode's floor (an IR fragment with no
+    IR loaded falls back to 16) or micro_ms at the event's design rate."""
+    floor_n = 64 if (mode == "IR fragment" and have_ir) else \
+        _EVENT_N_FLOORS.get(mode, 16)
+    return int(max(floor_n, round(gen_sr * micro_ms / 1000.0)))
+
+
+def build_program_seq(params: MicrosoundParams, ir_audio=None,
+                      img_gray=None) -> dict:
+    """The scalar per-event twin of ``build_program`` (microsound.py:215):
+    the reference-shaped loop, one event at a time, kept as the ground
+    truth that ``build_program`` equals array for array."""
+    p = params
+    base_sr = int(p.base_sr)
+    out_n = int(max(1, round(float(p.out_dur_s) * base_sr)))
+    base_unfold = max(1.0, float(p.time_unfold))
+
+    bp_density = parse_breakpoints(p.bp_density)
+    bp_unfold = parse_breakpoints(p.bp_unfold)
+    bp_cutoff = parse_breakpoints(p.bp_cutoff)
+    bp_stretch = parse_breakpoints(p.bp_stretch)
+
+    rate = float(p.grains_per_sec)
+    times = generate_event_times(
+        p.event_process, float(p.out_dur_s), rate, seed=int(p.seed),
+        cluster_size=int(p.cluster_size),
+        cluster_spread_ms=float(p.cluster_spread_ms),
+        hawkes_gain=float(p.hawkes_gain),
+        hawkes_decay_s=float(p.hawkes_decay_s))
+    times = times[: int(p.max_grains)]
+
+    rng = np.random.default_rng(int(p.seed) + 123456)
+    mode = p.gen_mode
+    have_ir = ir_audio is not None and np.asarray(ir_audio).size >= 32
+    ir_mono = None
+    if ir_audio is not None:
+        ir_mono = np.asarray(ir_audio, np.float64)
+        if ir_mono.ndim > 1:
+            ir_mono = ir_mono.mean(axis=1)
+
+    ev = {k: [] for k in ("seed", "n", "gen_sr", "inv_gen_sr", "amp",
+                          "offset", "start", "cutoff_gen", "stretch")}
+    aux = {k: [] for k in _AUX_KEYS}
+    for i, t0 in enumerate(times):
+        dens = eval_breakpoints(bp_density, t0, default=rate)
+        ufac = eval_breakpoints(bp_unfold, t0, default=base_unfold)
+        cutoff_out = eval_breakpoints(bp_cutoff, t0,
+                                      default=float(p.bandlimit_out_hz))
+        stretch = eval_breakpoints(bp_stretch, t0,
+                                   default=float(p.partial_stretch))
+
+        amp = 1.0
+        if rate > 0:
+            amp *= float(np.clip(dens / max(1e-6, rate), 0.15, 4.0))
+        amp *= float(rng.uniform(1.0 - float(p.grain_amp_rand),
+                                 1.0 + float(p.grain_amp_rand)))
+
+        ufac = max(1.0, float(ufac))
+        gen_sr_evt = int(np.clip(int(round(base_sr * ufac)),
+                                 base_sr, MAX_GEN_SR))
+        n = _event_n(mode, gen_sr_evt, float(p.micro_ms), have_ir)
+
+        start = int(round(t0 * base_sr))
+        if start >= out_n:
+            continue  # the reference skips before the offset draw
+
+        offset = 0
+        if p.grain_offset_on:
+            max_off = int(round(float(p.grain_offset_max_ms) / 1000.0
+                                * base_sr))
+            if max_off > 0:
+                offset = int(rng.integers(0, max(1, min(max_off, n))))
+
+        ev["seed"].append(int(p.seed) + i)
+        ev["n"].append(n)
+        ev["gen_sr"].append(float(gen_sr_evt))
+        ev["inv_gen_sr"].append(float(np.float32(1.0)
+                                      / np.float32(gen_sr_evt)))
+        ev["amp"].append(amp)
+        ev["offset"].append(offset)
+        ev["start"].append(start)
+        ev["cutoff_gen"].append(float(cutoff_out) * ufac)
+        ev["stretch"].append(float(stretch))
+        _event_aux_draws(p, mode, i, n, gen_sr_evt, have_ir, ir_mono,
+                         img_gray, aux)
+
+    E = len(ev["seed"])
+    prog = {
+        "out_n": out_n,
+        "E": E,
+        "gen_sr_base": int(np.clip(int(round(base_sr * base_unfold)),
+                                   base_sr, MAX_GEN_SR)),
+    }
+    if E == 0:
+        return prog
+    L = _next_pow2(max(ev["n"]))
+    prog["L"] = L
+    for k in ("seed", "n", "offset", "start"):
+        prog[k] = np.asarray(ev[k], np.int32)
+    for k in ("gen_sr", "inv_gen_sr", "amp", "cutoff_gen", "stretch"):
+        prog[k] = np.asarray(ev[k], np.float32)
+    _finalize_aux(p, mode, prog, aux, L)
+    return prog
 
 
 def build_program(params: MicrosoundParams, ir_audio=None,
@@ -860,24 +967,37 @@ def fx_body(cfg: FxCfg, out: torch.Tensor, er_kernel: torch.Tensor,
 
 
 def render_device(cfg: ChainCfg | None, fx: FxCfg, chunks: list[dict],
-                  er_kernel: torch.Tensor, ir_kernel: torch.Tensor):
+                  er_kernel: torch.Tensor, ir_kernel: torch.Tensor,
+                  progress=None):
     """The device part of a render (the JAX package's _fused_fn and its
     multi-chunk loop): every chunk overlap-adds into one margin-layout
     buffer made on the device, the feedback / imprint carry going from
     chunk to chunk, then the FX run on the audio span.  Returns (stereo,
-    last grain or None)."""
+    last grain or None).
+
+    ``progress(pct, msg)``, where given, is called where the JAX package
+    calls it (microsound.py:1177, :1194, :1213): after each chunk of a
+    render of several, then once with (100, "Done.").  Its arguments come
+    from the host's chunk count, so it adds no device work and no sync."""
     grain_last = None
     if chunks:
         out = torch.zeros(overlap_add.ring_out_len(fx.out_n, cfg.L),
                           dtype=torch.float32, device=er_kernel.device)
         carry = None
-        for ev in chunks:
+        n = len(chunks)
+        for ci, ev in enumerate(chunks):
             carry, grain_last = chunk_body(cfg, ev, out, carry)
+            if progress and n > 1:
+                progress(int(5 + 70 * (ci + 1) / n),
+                         f"Events chunk {ci + 1}/{n}")
         audio = out[cfg.L: cfg.L + fx.out_n]
     else:
         audio = torch.zeros(fx.out_n, dtype=torch.float32,
                             device=er_kernel.device)
-    return fx_body(fx, audio, er_kernel, ir_kernel), grain_last
+    stereo = fx_body(fx, audio, er_kernel, ir_kernel)
+    if progress:
+        progress(100, "Done.")
+    return stereo, grain_last
 
 
 def program_to_device(prog: dict, device) -> dict:
@@ -944,13 +1064,15 @@ def fx_cfg(params: MicrosoundParams, out_n: int, ir_on: bool,
 
 def render_program(params: MicrosoundParams, prog: dict, space_kernels,
                    *, device="cuda", event_chunk: int | None = None,
-                   pcm16: bool = False, want_micro_last: bool = False):
+                   pcm16: bool = False, want_micro_last: bool = False,
+                   progress=None):
     """Render a built program: ``prog`` from build_program (this package's
     or the JAX package's) and ``space_kernels`` = (er_kernel, ir_kernel,
     ir_on) from _space_kernels.  Returns (stereo on ``device``, meta):
     stereo is f32 [out_n, 2], or int16 PCM with ``pcm16``; with
     ``want_micro_last`` meta also holds micro_last, the last event's raw
-    generator output cut to its n."""
+    generator output cut to its n.  ``progress(pct, msg)`` is called as
+    ``render_device`` says."""
     er_kernel, ir_kernel, ir_on = space_kernels
     fx = fx_cfg(params, prog["out_n"], ir_on, pcm16)
     cfg, chunks = None, []
@@ -961,7 +1083,7 @@ def render_program(params: MicrosoundParams, prog: dict, space_kernels,
                   for c in _chunk_events(prog, ec)]
     kern = program_to_device({"er": er_kernel, "ir": ir_kernel}, device)
     stereo, grain_last = render_device(cfg, fx, chunks, kern["er"],
-                                       kern["ir"])
+                                       kern["ir"], progress)
     meta = {"out_sr": int(params.base_sr),
             "design_sr_base": prog["gen_sr_base"],
             "events": prog["E"],
@@ -973,18 +1095,22 @@ def render_program(params: MicrosoundParams, prog: dict, space_kernels,
 
 def render(params: MicrosoundParams, ir_audio=None, img_gray=None, *,
            device="cuda", event_chunk: int | None = None,
-           pcm16: bool = False, want_micro_last: bool = False):
+           pcm16: bool = False, want_micro_last: bool = False,
+           progress=None):
     """Full Microsound render (microsound.py:1124) on ``device``: returns
     (stereo tensor [out_n, 2] on the device — f32, or int16 PCM with
     ``pcm16`` — and a meta dict with out_sr, design_sr_base, events,
     grain_last, the last event's grain after the chain, and with
     ``want_micro_last`` micro_last).  ``img_gray`` is the image-scanline
     mode's grayscale array (0-255, rows x columns); ``ir_audio`` feeds
-    the IR-fragment mode and the IR convolution."""
+    the IR-fragment mode and the IR convolution.  ``progress(pct, msg)``,
+    where given, hears of each chunk of a render of several and of the
+    end, as in the JAX package."""
     prog = build_program(params, ir_audio=ir_audio, img_gray=img_gray)
     return render_program(params, prog, _space_kernels(params, ir_audio),
                           device=device, event_chunk=event_chunk,
-                          pcm16=pcm16, want_micro_last=want_micro_last)
+                          pcm16=pcm16, want_micro_last=want_micro_last,
+                          progress=progress)
 
 
 def _start_pull(stereo: torch.Tensor, stream):

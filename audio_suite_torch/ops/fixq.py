@@ -1,6 +1,6 @@
 """Exact fixed-point tape-position arithmetic, the 12-bit significand
 splits and the fractional reads — port of audio_suite_tpu/ops/fixq.py
-(the parts the tape, scrub, Pattern Lab and grid renders use).
+(all of it but the TPU's one-hot block gather).
 
 A position is ``whole + frac * 2**-POS_FRAC_BITS`` with int32 ``whole`` and
 ``frac`` in ``[0, POS_ONE)``; increments are quantized through single-
@@ -43,6 +43,48 @@ def quantize_f32(x: torch.Tensor) -> torch.Tensor:
 def quantize_f32_np(x):
     x = np.asarray(x, np.float32)
     return (np.rint(x * np.float32(POS_ONE)) * POS_INV_F).astype(np.float32)
+
+
+def _f32(x, device) -> torch.Tensor:
+    """``x`` as f32 on ``device``; a tensor stays on its own device when
+    ``device`` is None, a host value needs one."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=x.device if device is None else device,
+                    dtype=torch.float32)
+    if device is None:
+        raise TypeError("a host value needs an explicit device")
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+
+def to_fix(x, *, device=None) -> torch.Tensor:
+    """f32 value -> int32 fixed point (2**-POS_FRAC_BITS units): exact
+    scale, round-half-even.  |x| must stay below 2**(31 - POS_FRAC_BITS)
+    (512 samples); use ``split_pos_np`` for positions."""
+    return torch.round(_f32(x, device) * POS_ONE_F).to(torch.int32)
+
+
+def to_fix_np(x):
+    x = np.asarray(x, np.float32)
+    return np.rint(x * np.float32(POS_ONE)).astype(np.int32)
+
+
+def inc_fix(speed_q, mod_q, *, device=None) -> torch.Tensor:
+    """Fixed-point per-sample increment from quantized f32 speed and mod:
+    one f32 rounding (the product); the scale and the rounding to an
+    integer are exact."""
+    r = _f32(speed_q, device) * _f32(mod_q, device)
+    return torch.round(r * POS_ONE_F).to(torch.int32)
+
+
+def inc_fix_np(speed_q, mod_q):
+    r = np.float32(speed_q) * np.asarray(mod_q, np.float32)
+    return np.rint(r * np.float32(POS_ONE)).astype(np.int32)
+
+
+def fix_to_f32(whole, frac, *, device=None) -> torch.Tensor:
+    """Approximate f32 view of a fixed-point position, for continuous
+    math only, never for decisions."""
+    return _f32(whole, device) + _f32(frac, device) * float(POS_INV_F)
 
 
 def split_pos_np(v) -> tuple[int, int]:
@@ -229,3 +271,25 @@ def segmented_pos_cumsum(inc: torch.Tensor, reset: torch.Tensor,
     val = incl - base[seg]
     return ((val >> POS_FRAC_BITS).to(torch.int32),
             (val & POS_MASK).to(torch.int32))
+
+
+def segmented_pos_cumsum_np(inc, reset, init_whole=0, init_frac=0):
+    """Sequential NumPy mirror of ``segmented_pos_cumsum`` (the oracle),
+    bit-identical to it."""
+    inc = np.asarray(inc, np.int64)  # headroom; results fit int32 by contract
+    n = inc.shape[0]
+    whole = np.zeros(n, np.int64)
+    frac = np.zeros(n, np.int64)
+    w = int(init_whole)
+    f = int(init_frac)
+    for i in range(n):
+        if reset[i]:
+            w = 0
+            f = 0
+        f += int(inc[i])
+        carry = f >> POS_FRAC_BITS
+        w += carry
+        f -= carry << POS_FRAC_BITS
+        whole[i] = w
+        frac[i] = f
+    return whole.astype(np.int32), frac.astype(np.int32)

@@ -95,6 +95,11 @@ def uniform(seed, idx: torch.Tensor, stream=0) -> torch.Tensor:
     return uniform_key(cell_key(seed, idx), stream)
 
 
+def uniform_signed(seed, idx: torch.Tensor, stream=0) -> torch.Tensor:
+    """f32 uniform in [-1, 1): ``uniform * 2 - 1``, both steps exact."""
+    return uniform(seed, idx, stream) * 2.0 - 1.0
+
+
 def uniform_pair_key(key: torch.Tensor, stream=0):
     """``uniform_pair`` from a precomputed ``cell_key``."""
     h = hash_key(key, stream)
@@ -162,6 +167,10 @@ def hash_u32_np(seed, idx, stream=0):
 def uniform_np(seed, idx, stream=0):
     return ((hash_u32_np(seed, idx, stream) >> np.uint32(8))
             .astype(np.float32) * np.float32(_INV24))
+
+
+def uniform_signed_np(seed, idx, stream=0):
+    return uniform_np(seed, idx, stream) * np.float32(2.0) - np.float32(1.0)
 
 
 def uniform_pair_np(seed, idx, stream=0):

@@ -11,6 +11,8 @@ mesh and lets a jit's out-sharding gather the results.  Here:
 - :func:`make_global_mesh` builds a ``(world_size, local)`` mesh whose
   first axis is the process boundary and whose second holds this
   process's devices (every process is taken to hold as many);
+- :func:`put_global_batch` gives this rank the slice of a batch's
+  leading axis that falls on its devices, one block a device;
 - :func:`distributed_batch_render` computes this rank's share of the jobs
   on its local devices, then ``all_gather``s the shares, so every rank
   returns the same host NumPy batch.
@@ -76,6 +78,26 @@ def make_global_mesh(axis_names=("dp_host", "dp_chip"), *,
                 axis_names)
 
 
+def put_global_batch(mesh: Mesh, tree, axes=("dp_host", "dp_chip")) -> list:
+    """This rank's part of a tree (the same host NumPy on every process)
+    whose leading axis is split over the mesh's ``axes``: the slice that
+    falls on this rank's row, split over its devices, as a list with one
+    tree a device, each block on its device (the port's form of JAX's
+    ``make_array_from_callback`` over a ``NamedSharding``).  The leading
+    dim must divide by the mesh's size (pad with no-op jobs)."""
+    world, rank = _world()
+    n_host, n_local = mesh.devices.shape
+    if n_host != world:
+        raise ValueError(f"a mesh of {n_host} hosts in a world of {world}")
+    B = int(np.shape(first_leaf(tree))[0])
+    if B % (world * n_local):
+        raise ValueError(f"{B} jobs do not divide over {world} x {n_local} "
+                         "devices")
+    share = B // world
+    mine = tree_map(lambda x: x[rank * share:(rank + 1) * share], tree)
+    return shard_batch(Mesh(mesh.devices[rank], (axes[1],)), mine, axes[1])
+
+
 def _gather(x: torch.Tensor, world: int) -> torch.Tensor:
     """Every rank's ``x`` in rank order: through NCCL on the card, or gloo
     on the host."""
@@ -100,20 +122,9 @@ def distributed_batch_render(kernel, batched_args, mesh: Mesh | None = None,
     if mesh is None:
         mesh = make_global_mesh(axes)
     world, rank = _world()
-    n_host, n_local = mesh.devices.shape
-    if n_host != world:
-        raise ValueError(f"a mesh of {n_host} hosts in a world of {world}")
-    B = int(np.shape(first_leaf(batched_args))[0])
-    if B % (world * n_local):
-        raise ValueError(f"{B} jobs do not divide over {world} x {n_local} "
-                         "devices")
-    share = B // world
-    mine = tree_map(lambda x: x[rank * share:(rank + 1) * share],
-                    batched_args)
-    local = Mesh(mesh.devices[rank], (axes[1],))
     f = torch.func.vmap(kernel)
     outs = [f(*a) if isinstance(a, tuple) else f(a)
-            for a in shard_batch(local, mine, axes[1])]
+            for a in put_global_batch(mesh, batched_args, axes)]
     dev0 = mesh.devices[rank, 0]
     out = tree_map(lambda *xs: torch.cat([x.to(dev0) for x in xs]), *outs)
     return tree_map(lambda x: _to_numpy(_gather(x, world)), out)

@@ -17,9 +17,8 @@ The device is ``context["device"]``, which the port's grid sets to its
 render's device (``models/grid.py``), or ``"cuda"`` when the context lacks
 it or there is none; the functions also take ``device=``.  The grid's
 program memo (``grid.build_mix_program_cached``) is keyed on the project's
-content, not on the device: once a project's program is built, a render on
-another device reuses the cells' audio made on the first.  Clear
-``grid._PROGRAM_CACHE`` between the two where that matters.
+content and the render's device, so a render on the CPU never reuses
+cells computed on the card.
 """
 from __future__ import annotations
 

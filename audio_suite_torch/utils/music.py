@@ -95,6 +95,15 @@ def euclidean_rhythm(steps: int, pulses: int, rotate: int = 0) -> np.ndarray:
     return pat
 
 
+def quantize_to_bits_np(x: np.ndarray, bits: int) -> np.ndarray:
+    """Symmetric quantization to +/-1 (app/music.py:89-94), in the
+    reference's f64 promotion: the music-math API's quantizer."""
+    levels = 2 ** (bits - 1)
+    y = np.clip(x, -1.0, 1.0)
+    yq = np.round(y * (levels - 1)) / (levels - 1)
+    return yq.astype(np.float32)
+
+
 def quantize_to_bits_f32_np(x: np.ndarray, bits: int) -> np.ndarray:
     """Bit-exact NumPy twin of ops/synth.quantize_to_bits: all-f32 op
     sequence with a reciprocal multiply."""

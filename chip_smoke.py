@@ -225,10 +225,13 @@ Phases:
    Cells"`` and with ``--script examples/patterns/prime_echoes.py``;
    ``grid`` on config 5's grid half saved as a project and on the
    ``grid`` golden's project with ``plugins/torch_cells.py`` as its cell
-   (the program memo cleared first, so the cells run on the card);
+   (its cells run on the card: the program memo is keyed on the
+   device);
    ``forestfire --steps 480 --seed 2 --ignite 110,80 --rules
-   examples/demo_rules.json --stats-out``; ``bench``, which must exit
-   non-zero.  Each WAV is bit-equal to the same render made through the
+   examples/demo_rules.json --stats-out``; ``bench`` (its ``main``
+   stubbed: phase 13 runs the harness), which must reach the port's
+   harness with ``--device cuda``.  Each WAV is bit-equal to the same
+   render made through the
    engine's API on the card (inputs read back from their WAVs) and
    written the same way; forestfire's stats JSON and printed OSC events
    equal the API run's; the three grid goldens pass with
@@ -238,7 +241,24 @@ Phases:
    writes the same WAV; each run's wall and realtime factor, and the
    phase's duration.  The CLI's launches join the overlap-add, clamp
    read, scrub read and fused stick-slip rows under
-   ``launches_by_path["cli"]``.
+   ``launches_by_path["cli"]``;
+13. the harness, the progress callback and the grid memo: (a) the port's
+   harness (``audio_suite_torch.bench.run_all``) in-process at full size
+   on the card, its JSON line printed on a line of its own, with no
+   "failures", every ``rtf_*`` finite and > 0, its ``device`` naming
+   this card, and the overlap-add, clamp read and scrub read each
+   launched (the launches join their rows under
+   ``launches_by_path["bench"]``); (b) config 3 rendered on the card in
+   3 chunks (``event_chunk`` 96) with a progress callback: its ``(pct,
+   msg)`` list equal to the same call's on the CPU, and the card's
+   device events (kernel names, in order, from one ``torch.profiler``
+   window, the renders separated by sleep kernels: one render to settle
+   the window, then without, with and without the callback) the same
+   with the callback as without it, the samples bit-equal; (c) the
+   ``grid`` golden's project on ``plugins/torch_cells.py`` rendered on
+   the card, then on the CPU: the CPU render bit-equal to one made after
+   clearing the program memo, and a cell that records
+   ``context["device"]`` sees both devices; and the phase's duration.
 
 Every kernel's launch count is set to 0 just before a path is driven and
 read just after it.  A kernel is timed twice.  Warm (its ``ms``, the
@@ -1413,7 +1433,7 @@ def grid_path(dev, card: str) -> dict:
         walls.append(time.perf_counter() - t0)
     wall = statistics.median(walls)
     n_total, rows = entry["n_total"], entry["rows"]
-    prep = entry["prep"][(True, str(torch.device(dev)))]
+    prep = entry["prep"][True]
 
     def device_render():
         return grid._device_mixdown(n_total, rows, device_out=True,
@@ -3507,15 +3527,13 @@ def cli_patternlab_grid(dev, card: str, tmp: str) -> dict:
              project.sample_rate, tmp)
     counts["grid"] = cli_report("grid config 5", c, wall, GRID_SECONDS, card)
 
-    # torch_cells.py: the memo is cleared before each render, so the
-    # cells run on the render's device
+    # torch_cells.py: the cells run on the render's device (the program
+    # memo is keyed on it)
     project, _ = torch_cells_project("grid")
     path = os.path.join(tmp, "cells.json")
     grid.save_project(project, path)
     out = os.path.join(tmp, "cells.wav")
-    grid._PROGRAM_CACHE.clear()
     c, wall = cli_run(["grid", path, "-o", out])
-    grid._PROGRAM_CACHE.clear()
     y = grid.render_mixdown(grid.load_project(path), device=dev)
     same_wav("grid_torch_cells", out, y, project.sample_rate, tmp)
     counts["grid_torch_cells"] = cli_report("grid on torch_cells.py", c,
@@ -3525,15 +3543,12 @@ def cli_patternlab_grid(dev, card: str, tmp: str) -> dict:
     devs = []
     for name in ("grid", "grid_pydiv", "grid_host"):
         project, engine = torch_cells_project(name)
-        grid._PROGRAM_CACHE.clear()
         y = grid.render_mixdown(project, engine=engine, device=dev)
         tg._compare(name, tg._fingerprint(y), goldens[name])
-        grid._PROGRAM_CACHE.clear()
         y_cpu = grid.render_mixdown(project, engine=engine, device="cpu")
         gap = dbfs(torch.from_numpy(y), torch.from_numpy(y_cpu))
         devs.append(f"{name} " + ("bit-equal" if np.array_equal(y, y_cpu)
                                   else f"{gap:.1f}"))
-    grid._PROGRAM_CACHE.clear()
     print(f"cli grid goldens on torch_cells.py, cells on the card: grid, "
           f"grid_pydiv and grid_host pass at tests/test_goldens.py's "
           f"tolerances (1e-4, 0.01 dB); the card's render against the "
@@ -3545,8 +3560,8 @@ def cli_patternlab_grid(dev, card: str, tmp: str) -> dict:
 def cli_forestfire_bench(dev, card: str, tmp: str) -> dict:
     """``forestfire``: config 5's CA (seed 2, ignited at (110, 80)) for 480
     steps with ``examples/demo_rules.json``, its stats JSON and printed OSC
-    events equal to the same run through the API; ``bench`` exits
-    non-zero."""
+    events equal to the same run through the API; ``bench`` reaches the
+    port's harness with the CLI's device."""
     import io
     from audio_suite_torch.events import rules as R
     from audio_suite_torch.models import forestfire as ff
@@ -3582,14 +3597,15 @@ def cli_forestfire_bench(dev, card: str, tmp: str) -> dict:
           f"{wall * 1e3:.1f} ms ({FIRE_STEPS / wall:.1f} steps/s against "
           f"the 30 Hz tick); hand-kernel launches {used or 'none'} {card}",
           flush=True)
-    try:
+    from audio_suite_torch import bench
+    calls = []
+    with mock.patch.object(bench, "main",
+                           lambda argv: calls.append(argv) or 0):
         cli_run(["bench"])
-        code = 0
-    except SystemExit as e:
-        code = e.code
-    if code in (0, None) or "11a" not in str(code):
-        raise AssertionError(f"cli bench exited with {code!r}")
-    print(f"cli bench: exits non-zero ({code})", flush=True)
+    if calls != [["--device", "cuda"]]:
+        raise AssertionError(f"cli bench called the harness with {calls}")
+    print(f"cli bench: reaches audio_suite_torch.bench with {calls[0]} "
+          f"(the harness runs in phase 13)", flush=True)
     return {"forestfire": c}
 
 
@@ -3611,6 +3627,182 @@ def cli_path(dev, card: str) -> dict:
     print(f"cli: launches over the {len(runs)} runs {total}", flush=True)
     print(f"phase 12: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return total
+
+
+# ---- phase 13: the harness, the progress callback, the grid memo
+
+HARNESS_KERNELS = ("overlap_add", "lerp_read", "scrub_read")
+PROGRESS_CHUNK = 96     # config 3's 270 events in 3 chunks
+
+_DEVICE_CELL = """import numpy as np
+def generate(sr, duration, context):
+    with open({log!r}, "a") as f:
+        f.write(str(context["device"]) + "\\n")
+    return np.full(int(round(sr * duration)), 0.25, np.float32)
+"""
+
+
+def harness_path(dev, name_limit: str) -> dict:
+    """13(a): the port's harness at full size on the card, in this
+    process; returns its hand-kernel launches."""
+    from audio_suite_torch import bench
+    t0 = time.perf_counter()
+    reset_counts()
+    line = bench.run_all(dev)
+    counts = read_counts()
+    wall = time.perf_counter() - t0
+    print(json.dumps(line), flush=True)
+    if "failures" in line:
+        raise AssertionError(f"harness failures: {line['failures']}")
+    bad = {k: v for k, v in line.items() if k.startswith("rtf_")
+           and not (isinstance(v, (int, float)) and np.isfinite(v)
+                    and v > 0)}
+    if bad or not all(f"rtf_{c}" in line for c in bench.CONFIGS):
+        raise AssertionError(f"harness rates not finite and > 0: {bad}")
+    if line["device"] != name_limit:
+        raise AssertionError(f"harness names {line['device']!r}, the card "
+                             f"is {name_limit!r}")
+    missing = [k for k in HARNESS_KERNELS if not counts[k]]
+    if missing:
+        raise AssertionError(f"the harness launched no {missing}")
+    used = {k: v for k, v in counts.items() if v}
+    print(f"harness: rtf_geomean {line['value']} over "
+          f"{len(bench.CONFIGS)} configurations in {wall:.1f} s; "
+          f"hand-kernel launches {used} [{name_limit}]", flush=True)
+    return counts
+
+
+def device_kernels(fns) -> list:
+    """The names of the device events of each call in ``fns``, in order,
+    from one ``torch.profiler`` window in which a sleep kernel is
+    launched before and after each call: the window's last event is that
+    kernel, and its launches cut the window into the calls' parts.  The
+    profiler may drop the first events of a window, so ``fns[0]`` only
+    settles it and its part is what is left of it.  [] if the profiler
+    saw no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for fn in fns:
+            torch.cuda._sleep(1000)
+            fn()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    seq = [e.name for e in sorted(evs, key=lambda e: e.time_range.start)]
+    if not seq:
+        return []
+    cuts = [i for i, name in enumerate(seq) if name == seq[-1]]
+    if len(cuts) < len(fns):
+        raise AssertionError(f"{len(cuts)} separators of {len(fns) + 1} in "
+                             f"the profiler window")
+    cuts = cuts[-len(fns):]
+    settle = [name for name in seq[:cuts[0]] if name != seq[-1]]
+    return [settle] + [seq[a + 1:b] for a, b in zip(cuts, cuts[1:])]
+
+
+def progress_path(dev, card: str):
+    """13(b): config 3 in 3 chunks on the card with a progress callback:
+    the same (pct, msg) list as on the CPU, the same device events and
+    samples as without the callback."""
+    from audio_suite_torch.models import microsound as ms
+    p, ir = config3(full=True)
+    seen = {}
+    ys = {}
+    for where in (dev, "cpu"):
+        calls = []
+        ys[str(where)], meta = ms.render(
+            p, ir_audio=ir, device=where, event_chunk=PROGRESS_CHUNK,
+            progress=lambda pct, msg, calls=calls: calls.append((pct, msg)))
+        seen[str(where)] = calls
+    chunks = -(-meta["events"] // PROGRESS_CHUNK)
+    if chunks < 3 or seen[str(dev)] != seen["cpu"] \
+            or len(seen["cpu"]) != chunks + 1 \
+            or seen["cpu"][-1] != (100, "Done."):
+        raise AssertionError(f"progress: {chunks} chunks, card "
+                             f"{seen[str(dev)]}, CPU {seen['cpu']}")
+    # one profiler window: a render to settle the window, then without,
+    # with and without the callback
+    ys_cb = []
+
+    def render(cb):
+        def call():
+            y, _ = ms.render(p, ir_audio=ir, device=dev,
+                             event_chunk=PROGRESS_CHUNK, progress=cb)
+            ys_cb.append((cb is None, y))
+        return call
+    quiet = lambda pct, msg: None  # noqa: E731
+    parts = device_kernels([render(None), render(None), render(quiet),
+                            render(None)])
+    if not parts:
+        print("progress: the profiler saw no device event; device events "
+              "with and without the callback not compared", flush=True)
+        k0 = []
+    else:
+        k0, k1, k2 = parts[1:]
+        if not k0 or k1 != k0 or k2 != k0:
+            raise AssertionError(
+                f"progress: {len(k1)} device events with the callback, "
+                f"{len(k0)} and {len(k2)} without")
+    if not all(torch.equal(y, ys[str(dev)]) for _, y in ys_cb):
+        raise AssertionError("progress: the callback changed the render")
+    print(f"progress: config 3 in {chunks} chunks of {PROGRESS_CHUNK}: "
+          f"card and CPU both {seen['cpu']}; {len(k0)} device events "
+          f"without the callback, with it and without again, the same "
+          f"kernels in the same order (the window's first render: "
+          f"{len(parts[0]) if parts else 0}); samples bit-equal {card}",
+          flush=True)
+
+
+def memo_path(dev):
+    """13(c): the ``grid`` golden on ``torch_cells.py``, on the card then
+    on the CPU: the CPU render equals a fresh CPU render; a cell that
+    records its device sees both."""
+    import tempfile
+    from audio_suite_torch.models import grid
+    project, engine = torch_cells_project("grid")
+    grid._PROGRAM_CACHE.clear()
+    y_card = grid.render_mixdown(project, engine=engine, device=dev)
+    y_cpu = grid.render_mixdown(project, engine=engine, device="cpu")
+    grid._PROGRAM_CACHE.clear()
+    y_fresh = grid.render_mixdown(project, engine=engine, device="cpu")
+    if not np.array_equal(y_cpu, y_fresh):
+        raise AssertionError("grid: a CPU render after a card render is not "
+                             "the fresh CPU render")
+    gap = dbfs(torch.from_numpy(y_card), torch.from_numpy(y_cpu))
+    with tempfile.TemporaryDirectory() as tmp:
+        log = os.path.join(tmp, "devices.txt")
+        cell = os.path.join(tmp, "rec.py")
+        with open(cell, "w") as f:
+            f.write(_DEVICE_CELL.format(log=log))
+        track = grid.Track(name="rec", mode="duration",
+                           duration_seconds=1.0, uniform_n=1,
+                           cells=[grid.CellSource("py", cell)])
+        rec = grid.GridProject(tracks=[track], sample_rate=8000,
+                               master=grid.MasterClock("fixed_seconds", 1.0))
+        grid.render_mixdown(rec, device=dev)
+        grid.render_mixdown(rec, device="cpu")
+        grid.render_mixdown(rec, device=dev)
+        with open(log) as f:
+            seen = f.read().split()
+    if seen != [str(dev), "cpu"]:
+        raise AssertionError(f"grid: the recording cell saw {seen}")
+    print(f"grid memo: torch_cells project on the card then the CPU: the "
+          f"CPU render bit-equal to a fresh one (the card's "
+          f"{'bit-equal' if np.array_equal(y_card, y_cpu) else f'{gap:.1f} dBFS'}"
+          f" from it); a recording cell saw {seen}", flush=True)
+
+
+def phase13(dev, card: str, name_limit: str) -> dict:
+    """Phase 13; returns the harness's hand-kernel launches."""
+    t_phase = time.perf_counter()
+    counts = harness_path(dev, name_limit)
+    progress_path(dev, card)
+    memo_path(dev)
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts
 
 
 def main() -> int:
@@ -3690,6 +3882,12 @@ def main() -> int:
                       (ss_row, "stick_slip_noise_scan")):
         row["launches_by_path"]["cli"] = cli[name]
         row["launches"] += cli[name]
+    # ---- 13. the harness: its launches join their rows
+    bench_counts = phase13(dev, card, name_limit)
+    for row, name in ((oa_row, "overlap_add"), (lr_row, "lerp_read"),
+                      (sr_row, "scrub_read")):
+        row["launches_by_path"]["bench"] = bench_counts[name]
+        row["launches"] += bench_counts[name]
     rows = [oa_row, lr_row, sr_row] + scan_rows_ + [ts_row]
 
     print(json.dumps({"kernels": rows}))

@@ -19,7 +19,11 @@ compared:
 - ``forestfire --steps 30 --seed 2`` (ignited, with
   ``examples/demo_rules.json``): the ``--stats-out`` JSON and the printed
   OSC events equal;
-- ``bench`` exits non-zero naming ROADMAP.md item 11a;
+- ``bench`` dispatches to ``audio_suite_torch.bench`` with the CLI's
+  ``--device`` (its ``main`` stubbed: the smoke harness itself runs in
+  ``tests/test_torch_bench_smoke.py``) and exits 0 with ``--smoke``;
+- a single ``microsound`` render writes the same progress to stderr as
+  the JAX CLI's;
 - ``--trace DIR`` writes a trace JSON holding the ``microsound.render``
   range;
 - ``python -m audio_suite_torch.cli`` in a subprocess, with ``jax`` and
@@ -77,6 +81,24 @@ def test_microsound_matches_jax(tmp_path):
                               "--seed", "3"])
     assert yt.shape == (9600, 2) and float(np.abs(yt).max()) > 1e-3
     assert max_dev_dbfs(yj, yt) <= -100.0
+
+
+def test_microsound_progress_on_stderr(tmp_path, capsys):
+    """A single render reports its progress on stderr, as the JAX CLI's
+    does, and starts its summary on a new line."""
+    got = {}
+    for tag, main, pre in (("jax", jcli.main, []),
+                           ("torch", tcli.main, ["--device", "cpu"])):
+        out = str(tmp_path / f"{tag}.wav")
+        capsys.readouterr()
+        main(pre + ["microsound", "-o", out, "--dur", "0.2", "--seed", "3"])
+        got[tag] = capsys.readouterr()
+    err = got["torch"].err
+    assert err == got["jax"].err
+    assert "[100%] Done." in err and err.startswith("\r")
+    assert got["torch"].out.startswith("\n")
+    assert got["torch"].out.replace("torch.wav", "") == \
+        got["jax"].out.replace("jax.wav", "")
 
 
 def test_tape_matches_jax(tmp_path):
@@ -164,11 +186,21 @@ def test_forestfire_matches_jax(tmp_path, capsys):
     print(ot)
 
 
-def test_bench_exits_nonzero():
+def test_bench_runs_the_port_harness(monkeypatch):
+    from audio_suite_torch import bench
+    calls = []
+
+    def harness(argv):
+        calls.append(argv)
+        return 0 if "--smoke" in argv else 1
+
+    monkeypatch.setattr(bench, "main", harness)
+    tcli.main(["--device", "cpu", "bench", "--smoke"])
+    assert calls == [["--device", "cpu", "--smoke"]]
+    # a harness that reports failures makes the CLI exit non-zero
     with pytest.raises(SystemExit) as e:
         tcli.main(["--device", "cpu", "bench"])
-    assert e.value.code not in (0, None)
-    assert "11a" in str(e.value.code)
+    assert e.value.code == 1 and calls[-1] == ["--device", "cpu"]
 
 
 def test_trace_holds_the_render_range(tmp_path):

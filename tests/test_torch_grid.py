@@ -202,7 +202,7 @@ def test_segmented_pos_cumsum_tensor_init(init):
         for args in ((w, f), (w, init[1]), (init[0], f)):
             got = tfq.segmented_pos_cumsum(inc, reset, *args)
             assert all(torch.equal(g, e) for g, e in zip(got, want))
-    wn = jfq.segmented_pos_cumsum_np(inc.numpy(), reset.numpy(), *init)
+    wn = tfq.segmented_pos_cumsum_np(inc.numpy(), reset.numpy(), *init)
     assert all(np.array_equal(g.numpy(), e) for g, e in zip(want, wn))
 
 
@@ -464,6 +464,55 @@ def test_showcase_bit_equal_to_jax():
     assert mix.shape == (12 * 44100,)
     assert float(np.abs(mix).max()) == pytest.approx(0.98, abs=1e-6)
     assert any(tg.collect_restart_events(pt, 12.0))
+
+
+def test_program_memo_keys_on_the_device(tmp_path, monkeypatch):
+    """The program memo holds one entry per device (the cells run on the
+    render's device): a build on "cpu", then "cuda", then "cpu" again
+    makes two builds, "cuda" and "cuda:0" share one entry, and a CPU
+    render made after them is bit-equal to JAX's."""
+    pt, pj = _both(_mixdown_project(tmp_path))
+    built = []
+    build = tg._build_mix_program
+
+    def spy(project, device="cuda"):
+        built.append(str(device))
+        return build(project, "cpu")
+
+    monkeypatch.setattr(tg, "_PROGRAM_CACHE", type(tg._PROGRAM_CACHE)())
+    with monkeypatch.context() as m:
+        m.setattr(tg, "_build_mix_program", spy)
+        cpu = tg.build_mix_program_cached(pt, "cpu")
+        card = tg.build_mix_program_cached(pt, "cuda")
+        assert tg.build_mix_program_cached(pt, "cpu") is cpu
+        assert tg.build_mix_program_cached(pt, "cuda:0") is card
+        assert tg.build_mix_program_cached(pt, torch.device("cpu")) is cpu
+    assert built == ["cpu", "cuda"] and cpu is not card
+    assert len(tg._PROGRAM_CACHE) == 2
+    _assert_bit_equal_to_jax(pt, pj)
+
+
+def test_cells_see_each_render_device(tmp_path, monkeypatch):
+    """A cell that records ``context["device"]``, built for two device
+    strings, sees both: the second build is not served the first's
+    cells."""
+    log = tmp_path / "devices.txt"
+    cell = tmp_path / "rec.py"
+    cell.write_text(
+        "import numpy as np\n"
+        "def generate(sr, duration, context):\n"
+        f"    with open({str(log)!r}, 'a') as f:\n"
+        "        f.write(str(context['device']) + '\\n')\n"
+        "    return np.full(int(round(sr * duration)), 0.25, np.float32)\n")
+    t = tg.Track(name="rec", mode="duration", duration_seconds=1.0,
+                 uniform_n=1, cells=[tg.CellSource("py", str(cell))])
+    project = tg.GridProject(tracks=[t],
+                             master=tg.MasterClock("fixed_seconds", 1.0),
+                             sample_rate=SR)
+    monkeypatch.setattr(tg, "_PROGRAM_CACHE", type(tg._PROGRAM_CACHE)())
+    for device in ("cuda", "cpu", "cuda:0", "cpu"):
+        tg.build_mix_program_cached(project, device)
+    assert log.read_text().split() == ["cuda", "cpu"]
 
 
 _JAX_BLOCKED = """

@@ -335,7 +335,7 @@ def test_positions_bit_exact(name):
     # the oracle's sequential sum of the NumPy increment twin
     inc = np.concatenate([[0], pt["inc_fix"][:-1]]).astype(np.int32)
     inc[pt["reset"]] = 0
-    ow, of = jfq.segmented_pos_cumsum_np(inc, pt["reset"])
+    ow, of = tfq.segmented_pos_cumsum_np(inc, pt["reset"])
     seg = np.cumsum(pt["reset"])
     fs = of.astype(np.int64) + pt["seg_bases_frac"][seg]
     ws = ow.astype(np.int64) + pt["seg_bases_whole"][seg] + (fs >> 22)

@@ -251,12 +251,14 @@ def test_segmented_pos_cumsum_bit_exact(n, init):
     reset[0] = n == 4096                  # a reset on the first element
     got = tfq.segmented_pos_cumsum(torch.from_numpy(inc),
                                    torch.from_numpy(reset), *init)
-    want_np = jfq.segmented_pos_cumsum_np(inc, reset, *init)
+    want_np = tfq.segmented_pos_cumsum_np(inc, reset, *init)
     want_jax = jfq.segmented_pos_cumsum(inc, reset, *init)
-    for g, wn, wj in zip(got, want_np, want_jax):
-        assert g.dtype == torch.int32
+    jax_np = jfq.segmented_pos_cumsum_np(inc, reset, *init)
+    for g, wn, wj, jn in zip(got, want_np, want_jax, jax_np):
+        assert g.dtype == torch.int32 and wn.dtype == np.int32
         assert np.array_equal(g.numpy(), wn)
         assert np.array_equal(g.numpy(), np.asarray(wj))
+        assert np.array_equal(wn, jn)
 
 
 @pytest.mark.parametrize("sr,age", [(48000, 60), (8000, 70.0), (8000, 30.0),
