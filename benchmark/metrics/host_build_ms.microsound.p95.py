@@ -1,0 +1,8 @@
+"""host_build_ms.microsound.p95: ``host_build_ms.microsound``, read alike,
+in the cells whose end-to-end metric it moves is ``render_ms_p95``
+rather than ``rtf`` (``ms-c3-stickslip``, where the host's drift spreads
+``rtf`` wider than any bound may be)."""
+from benchmark import spec
+
+_base = spec.load_module("metrics", "host_build_ms.microsound")
+read = _base.read

@@ -1,0 +1,9 @@
+"""overlap_add_roofline.p95: ``overlap_add_roofline``, read alike, in the
+cells whose end-to-end metric it moves is ``render_ms_p95`` rather than
+``rtf`` (``ms-c3-stickslip``, where the host's drift spreads ``rtf``
+wider than any bound may be)."""
+from benchmark import spec
+
+_base = spec.load_module("metrics", "overlap_add_roofline")
+read = _base.read
+RECORD = _base.RECORD
