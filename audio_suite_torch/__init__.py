@@ -55,8 +55,9 @@ It ports every path of the JAX package, the ``bench`` harness aside:
 - the surfaces: the seven-subcommand CLI (``python -m
   audio_suite_torch.cli --device cuda|cpu ...``, its renders traced on
   ``torch.profiler`` with ``--trace DIR``; ``bench`` has no harness in
-  the port yet and exits non-zero), ``utils/profiling.py`` and
-  ``utils/metrics.py``, Microsound's ``load_image_gray``, Pattern Lab's
+  the port yet and exits non-zero), ``utils/profiling.py`` (with the
+  tracer: spans at each stage of a Microsound and a Pattern Lab render)
+  and ``utils/metrics.py``, Microsound's ``load_image_gray``, Pattern Lab's
   "Python Script" generator, and ``plugins/torch_cells.py``, the device
   grid cells (JAX's threefry draws ported bit-exact in ``ops/threefry.py``).
 

@@ -17,8 +17,14 @@ subcommands, with the same flags and defaults, rendering on a CUDA card
 ``--device`` (default ``cuda``) is every engine's ``device``: without a
 card, ``cuda`` exits with an error and nothing renders on the CPU unless
 asked.  ``--trace DIR`` writes a ``torch.profiler`` trace of the run
-(``utils/profiling.device_trace``), each render inside a
-``<subcommand>.render`` range.  Each render is pulled to the host once and
+(``utils/profiling.device_trace``) with the port's tracer on: each render
+is inside one ``<subcommand>.render`` range (Microsound's and Pattern
+Lab's are the engines' own root spans), and a Microsound or Pattern Lab
+render's stages (``microsound.build``, ``.space_kernels``, ``.upload``,
+``.chain``, ``.fx``; ``patternlab.time_ops``, ``.pack``, ``.upload``,
+``.bank`` with a ``.fm_bank`` or ``.psg_bank`` range a bucket,
+``.master``, ``.pull``) are ranges under it, beside the kernels each
+launched.  Each render is pulled to the host once and
 written as a float WAV, the tape's as PCM16, as the JAX CLI writes them.
 ``bench`` runs the port's harness (``audio_suite_torch/bench.py``) on
 ``--device``; ``bench --smoke`` at its CPU-test sizes.
@@ -69,10 +75,9 @@ def cmd_microsound(args):
                 progress=progress, device=args.device)
         print(f"\nwrote {len(paths)} files under {args.out or 'renders'}")
         return
-    with annotate("microsound.render"):
-        stereo, meta = ms.render(p, ir_audio=ir, img_gray=img,
-                                 progress=progress, device=args.device)
-        stereo = stereo.cpu().numpy()
+    stereo, meta = ms.render(p, ir_audio=ir, img_gray=img,
+                             progress=progress, device=args.device)
+    stereo = stereo.cpu().numpy()
     out = args.out or "microsound.wav"
     audio_io.write_wav(out, stereo, p.base_sr)
     print(f"\n{out}: {stereo.shape[0] / p.base_sr:.2f}s @ {p.base_sr} Hz, "
@@ -180,8 +185,7 @@ def cmd_patternlab(args):
                                                               **gen_kwargs)
         else:
             events = pl.generate(args.generator, cfg, **gen_kwargs)
-        with annotate("patternlab.render"):
-            y, events = pl.render(events, cfg, device=args.device)
+        y, events = pl.render(events, cfg, device=args.device)
         sr = cfg.sample_rate
     audio_io.write_wav(args.out, y, sr)
     print(f"{args.out}: {len(y) / sr:.2f}s, {len(events)} notes")

@@ -12,6 +12,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..utils.profiling import span
+
 
 @dataclass
 class NoteEvent:
@@ -40,25 +42,26 @@ class RenderConfig:
 def apply_time_ops(events: list[NoteEvent], cfg: RenderConfig) -> list[NoteEvent]:
     """Stretch, swing (delay odd 16ths), Gaussian micro-jitter
     (app/renderer.py:8-31), with the same seeded Generator."""
-    rng = np.random.default_rng(int(cfg.seed) & 0xFFFFFFFF)
-    out: list[NoteEvent] = []
-    swing = float(np.clip(cfg.swing, 0.0, 0.5))
-    for e in events:
-        t0 = float(e.t0) * float(cfg.time_stretch)
-        dur = float(e.dur) * float(cfg.time_stretch)
-        if swing > 0.0 and cfg.bpm > 0:
-            sec_16th = 60.0 / float(cfg.bpm) / 4.0
-            if sec_16th > 1e-6:
-                idx = int(round(t0 / sec_16th))
-                if idx % 2 == 1:
-                    t0 += swing * sec_16th
-        if cfg.micro_jitter > 0.0:
-            t0 += float(rng.normal(0.0, cfg.micro_jitter))
-            t0 = max(0.0, t0)
-        out.append(NoteEvent(t0=t0, dur=max(1e-4, dur), midi=float(e.midi),
-                             vel=float(e.vel), chan=int(e.chan),
-                             engine=e.engine))
-    return out
+    with span("patternlab.time_ops"):
+        rng = np.random.default_rng(int(cfg.seed) & 0xFFFFFFFF)
+        out: list[NoteEvent] = []
+        swing = float(np.clip(cfg.swing, 0.0, 0.5))
+        for e in events:
+            t0 = float(e.t0) * float(cfg.time_stretch)
+            dur = float(e.dur) * float(cfg.time_stretch)
+            if swing > 0.0 and cfg.bpm > 0:
+                sec_16th = 60.0 / float(cfg.bpm) / 4.0
+                if sec_16th > 1e-6:
+                    idx = int(round(t0 / sec_16th))
+                    if idx % 2 == 1:
+                        t0 += swing * sec_16th
+            if cfg.micro_jitter > 0.0:
+                t0 += float(rng.normal(0.0, cfg.micro_jitter))
+                t0 = max(0.0, t0)
+            out.append(NoteEvent(t0=t0, dur=max(1e-4, dur), midi=float(e.midi),
+                                 vel=float(e.vel), chan=int(e.chan),
+                                 engine=e.engine))
+        return out
 
 
 def prepare_note_batch(events: list[NoteEvent], cfg: RenderConfig):

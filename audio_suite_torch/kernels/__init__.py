@@ -20,6 +20,8 @@ import threading
 
 import torch
 
+from ..utils.profiling import span
+
 KERNEL_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(KERNEL_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -38,15 +40,21 @@ def _nvcc() -> str:
                        "are built from source on first use")
 
 
-def build(name: str) -> str:
-    """Compile ``<name>.cu`` (if not built yet) and return the library's
-    path.  The compiler's output is kept in ``_build/<lib>.log``."""
+def _paths(name: str) -> tuple[str, str]:
+    """``<name>.cu`` and its library's path, named by a hash of the
+    source and the flags."""
     src = os.path.join(KERNEL_DIR, name + ".cu")
     with open(src, "rb") as f:
         code = f.read()
     tag = hashlib.sha256(code + " ".join(NVCC_FLAGS).encode()) \
         .hexdigest()[:16]
-    so = os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
+    return src, os.path.join(BUILD_DIR, f"lib{name}_{tag}.so")
+
+
+def build(name: str) -> str:
+    """Compile ``<name>.cu`` (if not built yet) and return the library's
+    path.  The compiler's output is kept in ``_build/<lib>.log``."""
+    src, so = _paths(name)
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -121,10 +129,12 @@ def _lib(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(build(name))
-            for fn, (args, res) in _SIGNATURES[name].items():
-                getattr(lib, fn).argtypes = args
-                getattr(lib, fn).restype = res
+            with span("kernels.load", lib=name) as sp:
+                sp.set(built=not os.path.exists(_paths(name)[1]))
+                lib = ctypes.CDLL(build(name))
+                for fn, (args, res) in _SIGNATURES[name].items():
+                    getattr(lib, fn).argtypes = args
+                    getattr(lib, fn).restype = res
             _libs[name] = lib
         return lib
 

@@ -35,6 +35,7 @@ from ..ops import (detmath, envelopes, exact_dft, generators, overlap_add,
                    space, spectral)
 from ..utils.breakpoints import (eval_breakpoints, eval_breakpoints_vec,
                                 parse_breakpoints)
+from ..utils.profiling import span
 
 GEN_MODES = (
     "Gaussian click", "Dust impulses", "Noise burst", "Skewed transient",
@@ -332,106 +333,108 @@ def build_program(params: MicrosoundParams, ir_audio=None,
     event's auxiliary draws from its rng(seed + i), rng(seed + i + 321)
     and rng(seed + i + 777) streams.  Array for array equal to the JAX
     package's build_program."""
-    p = params
-    base_sr = int(p.base_sr)
-    out_n = int(max(1, round(float(p.out_dur_s) * base_sr)))
-    base_unfold = max(1.0, float(p.time_unfold))
+    with span("microsound.build"):
+        p = params
+        base_sr = int(p.base_sr)
+        out_n = int(max(1, round(float(p.out_dur_s) * base_sr)))
+        base_unfold = max(1.0, float(p.time_unfold))
 
-    bp_density = parse_breakpoints(p.bp_density)
-    bp_unfold = parse_breakpoints(p.bp_unfold)
-    bp_cutoff = parse_breakpoints(p.bp_cutoff)
-    bp_stretch = parse_breakpoints(p.bp_stretch)
+        bp_density = parse_breakpoints(p.bp_density)
+        bp_unfold = parse_breakpoints(p.bp_unfold)
+        bp_cutoff = parse_breakpoints(p.bp_cutoff)
+        bp_stretch = parse_breakpoints(p.bp_stretch)
 
-    rate = float(p.grains_per_sec)
-    times = generate_event_times(
-        p.event_process, float(p.out_dur_s), rate, seed=int(p.seed),
-        cluster_size=int(p.cluster_size),
-        cluster_spread_ms=float(p.cluster_spread_ms),
-        hawkes_gain=float(p.hawkes_gain),
-        hawkes_decay_s=float(p.hawkes_decay_s))
-    times = np.asarray(times, np.float64)[: int(p.max_grains)]
-    T = times.size
+        rate = float(p.grains_per_sec)
+        times = generate_event_times(
+            p.event_process, float(p.out_dur_s), rate, seed=int(p.seed),
+            cluster_size=int(p.cluster_size),
+            cluster_spread_ms=float(p.cluster_spread_ms),
+            hawkes_gain=float(p.hawkes_gain),
+            hawkes_decay_s=float(p.hawkes_decay_s))
+        times = np.asarray(times, np.float64)[: int(p.max_grains)]
+        T = times.size
 
-    rng = np.random.default_rng(int(p.seed) + 123456)
-    mode = p.gen_mode
-    have_ir = ir_audio is not None and np.asarray(ir_audio).size >= 32
-    ir_mono = None
-    if ir_audio is not None:
-        ir_mono = np.asarray(ir_audio, np.float64)
-        if ir_mono.ndim > 1:
-            ir_mono = ir_mono.mean(axis=1)
+        rng = np.random.default_rng(int(p.seed) + 123456)
+        mode = p.gen_mode
+        have_ir = ir_audio is not None and np.asarray(ir_audio).size >= 32
+        ir_mono = None
+        if ir_audio is not None:
+            ir_mono = np.asarray(ir_audio, np.float64)
+            if ir_mono.ndim > 1:
+                ir_mono = ir_mono.mean(axis=1)
 
-    dens = eval_breakpoints_vec(bp_density, times, default=rate)
-    ufac = np.maximum(1.0, eval_breakpoints_vec(bp_unfold, times,
-                                                default=base_unfold))
-    cutoff_out = eval_breakpoints_vec(bp_cutoff, times,
-                                      default=float(p.bandlimit_out_hz))
-    stretch = eval_breakpoints_vec(bp_stretch, times,
-                                   default=float(p.partial_stretch))
-    gen_sr_evt = np.clip(np.rint(base_sr * ufac).astype(np.int64),
-                         base_sr, MAX_GEN_SR)
-    floor_n = 64 if (mode == "IR fragment" and have_ir) else \
-        _EVENT_N_FLOORS.get(mode, 16)
-    n_ev = np.maximum(floor_n,
-                      np.rint(gen_sr_evt * float(p.micro_ms) / 1000.0)
-                      .astype(np.int64))
-    start = np.rint(times * base_sr).astype(np.int64)
-    keep = start < out_n
-    amp_base = np.ones(T, np.float64)
-    if rate > 0:
-        amp_base = np.clip(dens / max(1e-6, rate), 0.15, 4.0)
+        dens = eval_breakpoints_vec(bp_density, times, default=rate)
+        ufac = np.maximum(1.0, eval_breakpoints_vec(bp_unfold, times,
+                                                    default=base_unfold))
+        cutoff_out = eval_breakpoints_vec(bp_cutoff, times,
+                                          default=float(p.bandlimit_out_hz))
+        stretch = eval_breakpoints_vec(bp_stretch, times,
+                                       default=float(p.partial_stretch))
+        gen_sr_evt = np.clip(np.rint(base_sr * ufac).astype(np.int64),
+                             base_sr, MAX_GEN_SR)
+        floor_n = 64 if (mode == "IR fragment" and have_ir) else \
+            _EVENT_N_FLOORS.get(mode, 16)
+        n_ev = np.maximum(floor_n,
+                          np.rint(gen_sr_evt * float(p.micro_ms) / 1000.0)
+                          .astype(np.int64))
+        start = np.rint(times * base_sr).astype(np.int64)
+        keep = start < out_n
+        amp_base = np.ones(T, np.float64)
+        if rate > 0:
+            amp_base = np.clip(dens / max(1e-6, rate), 0.15, 4.0)
 
-    # the reference's sequential draw order: one amp uniform per event,
-    # then (kept events only) one bounded integers draw
-    max_off = 0
-    if p.grain_offset_on:
-        max_off = int(round(float(p.grain_offset_max_ms) / 1000.0 * base_sr))
-    lo_a = 1.0 - float(p.grain_amp_rand)
-    hi_a = 1.0 + float(p.grain_amp_rand)
-    amp_u = np.empty(T, np.float64)
-    offs = np.zeros(T, np.int64)
-    if max_off > 0:
-        bound = np.maximum(1, np.minimum(max_off, n_ev))
-        for i in range(T):
-            amp_u[i] = rng.uniform(lo_a, hi_a)
-            if keep[i]:
-                offs[i] = rng.integers(0, bound[i])
-    elif T:
-        amp_u[:] = rng.uniform(lo_a, hi_a, size=T)
+        # the reference's sequential draw order: one amp uniform per event,
+        # then (kept events only) one bounded integers draw
+        max_off = 0
+        if p.grain_offset_on:
+            max_off = int(round(float(p.grain_offset_max_ms) / 1000.0
+                                * base_sr))
+        lo_a = 1.0 - float(p.grain_amp_rand)
+        hi_a = 1.0 + float(p.grain_amp_rand)
+        amp_u = np.empty(T, np.float64)
+        offs = np.zeros(T, np.int64)
+        if max_off > 0:
+            bound = np.maximum(1, np.minimum(max_off, n_ev))
+            for i in range(T):
+                amp_u[i] = rng.uniform(lo_a, hi_a)
+                if keep[i]:
+                    offs[i] = rng.integers(0, bound[i])
+        elif T:
+            amp_u[:] = rng.uniform(lo_a, hi_a, size=T)
 
-    kept = np.flatnonzero(keep)
-    E = int(kept.size)
-    prog = {
-        "out_n": out_n,
-        "E": E,
-        "gen_sr_base": int(np.clip(int(round(base_sr * base_unfold)),
-                                   base_sr, MAX_GEN_SR)),
-    }
-    if E == 0:
+        kept = np.flatnonzero(keep)
+        E = int(kept.size)
+        prog = {
+            "out_n": out_n,
+            "E": E,
+            "gen_sr_base": int(np.clip(int(round(base_sr * base_unfold)),
+                                       base_sr, MAX_GEN_SR)),
+        }
+        if E == 0:
+            return prog
+
+        n_k = n_ev[kept]
+        L = _next_pow2(int(n_k.max()))
+        prog["L"] = L
+        prog["seed"] = (int(p.seed) + kept).astype(np.int32)
+        prog["n"] = n_k.astype(np.int32)
+        prog["offset"] = offs[kept].astype(np.int32)
+        prog["start"] = start[kept].astype(np.int32)
+        gsr_k = gen_sr_evt[kept]
+        prog["gen_sr"] = gsr_k.astype(np.float32)
+        prog["inv_gen_sr"] = np.float32(1.0) / gsr_k.astype(np.float32)
+        prog["amp"] = (amp_base * amp_u)[kept].astype(np.float32)
+        prog["cutoff_gen"] = (cutoff_out * ufac)[kept].astype(np.float32)
+        prog["stretch"] = stretch[kept].astype(np.float32)
+
+        if mode in _AUX_MODES or p.res_bank_on or p.wg_on:
+            aux = {k: [] for k in _AUX_KEYS}
+            for i in kept:
+                _event_aux_draws(p, mode, int(i), int(n_ev[i]),
+                                 int(gen_sr_evt[i]), have_ir, ir_mono,
+                                 img_gray, aux)
+            _finalize_aux(p, mode, prog, aux, L)
         return prog
-
-    n_k = n_ev[kept]
-    L = _next_pow2(int(n_k.max()))
-    prog["L"] = L
-    prog["seed"] = (int(p.seed) + kept).astype(np.int32)
-    prog["n"] = n_k.astype(np.int32)
-    prog["offset"] = offs[kept].astype(np.int32)
-    prog["start"] = start[kept].astype(np.int32)
-    gsr_k = gen_sr_evt[kept]
-    prog["gen_sr"] = gsr_k.astype(np.float32)
-    prog["inv_gen_sr"] = np.float32(1.0) / gsr_k.astype(np.float32)
-    prog["amp"] = (amp_base * amp_u)[kept].astype(np.float32)
-    prog["cutoff_gen"] = (cutoff_out * ufac)[kept].astype(np.float32)
-    prog["stretch"] = stretch[kept].astype(np.float32)
-
-    if mode in _AUX_MODES or p.res_bank_on or p.wg_on:
-        aux = {k: [] for k in _AUX_KEYS}
-        for i in kept:
-            _event_aux_draws(p, mode, int(i), int(n_ev[i]),
-                             int(gen_sr_evt[i]), have_ir, ir_mono, img_gray,
-                             aux)
-        _finalize_aux(p, mode, prog, aux, L)
-    return prog
 
 
 def _event_aux_draws(p, mode, i, n, gen_sr_evt, have_ir, ir_mono, img_gray,
@@ -980,21 +983,23 @@ def render_device(cfg: ChainCfg | None, fx: FxCfg, chunks: list[dict],
     render of several, then once with (100, "Done.").  Its arguments come
     from the host's chunk count, so it adds no device work and no sync."""
     grain_last = None
-    if chunks:
-        out = torch.zeros(overlap_add.ring_out_len(fx.out_n, cfg.L),
-                          dtype=torch.float32, device=er_kernel.device)
-        carry = None
-        n = len(chunks)
-        for ci, ev in enumerate(chunks):
-            carry, grain_last = chunk_body(cfg, ev, out, carry)
-            if progress and n > 1:
-                progress(int(5 + 70 * (ci + 1) / n),
-                         f"Events chunk {ci + 1}/{n}")
-        audio = out[cfg.L: cfg.L + fx.out_n]
-    else:
-        audio = torch.zeros(fx.out_n, dtype=torch.float32,
-                            device=er_kernel.device)
-    stereo = fx_body(fx, audio, er_kernel, ir_kernel)
+    dev = er_kernel.device
+    with span("microsound.chain", device=dev):
+        if chunks:
+            out = torch.zeros(overlap_add.ring_out_len(fx.out_n, cfg.L),
+                              dtype=torch.float32, device=dev)
+            carry = None
+            n = len(chunks)
+            for ci, ev in enumerate(chunks):
+                carry, grain_last = chunk_body(cfg, ev, out, carry)
+                if progress and n > 1:
+                    progress(int(5 + 70 * (ci + 1) / n),
+                             f"Events chunk {ci + 1}/{n}")
+            audio = out[cfg.L: cfg.L + fx.out_n]
+        else:
+            audio = torch.zeros(fx.out_n, dtype=torch.float32, device=dev)
+    with span("microsound.fx", device=dev):
+        stereo = fx_body(fx, audio, er_kernel, ir_kernel)
     if progress:
         progress(100, "Done.")
     return stereo, grain_last
@@ -1017,36 +1022,40 @@ def _space_kernels(p: MicrosoundParams, ir_audio):
     combined form (microsound.py:1084) — memoized on the ER parameters and
     the IR's digest, since the f64 host convolution is costly and
     parameter sweeps re-render with one space setup."""
-    ir_on = bool(p.space_ir_on) and ir_audio is not None
-    irm = None
-    if ir_on:
-        irm = np.asarray(ir_audio, np.float64)
-        if irm.ndim > 1:
-            irm = irm.mean(axis=1)
-        irm = irm[: int(p.space_ir_max_samps)]
-        irm = irm[: min(irm.size, 8192)]       # convolve_ir_short cap
-        ir_on = irm.size >= 8
+    with span("microsound.space_kernels") as sp:
+        ir_on = bool(p.space_ir_on) and ir_audio is not None
+        irm = None
+        if ir_on:
+            irm = np.asarray(ir_audio, np.float64)
+            if irm.ndim > 1:
+                irm = irm.mean(axis=1)
+            irm = irm[: int(p.space_ir_max_samps)]
+            irm = irm[: min(irm.size, 8192)]       # convolve_ir_short cap
+            ir_on = irm.size >= 8
 
-    key = (bool(p.er_cloud_on), int(p.er_taps), float(p.er_max_ms),
-           int(p.base_sr), int(p.seed),
-           hashlib.blake2b(irm.tobytes(), digest_size=16).digest()
-           if ir_on else None)
-    hit = _SPACE_KERNEL_CACHE.get(key)
-    if hit is not None:
-        return hit
+        key = (bool(p.er_cloud_on), int(p.er_taps), float(p.er_max_ms),
+               int(p.base_sr), int(p.seed),
+               hashlib.blake2b(irm.tobytes(), digest_size=16).digest()
+               if ir_on else None)
+        hit = _SPACE_KERNEL_CACHE.get(key)
+        sp.set(hit=hit is not None)
+        if hit is not None:
+            return hit
 
-    er_kernel = np.zeros(2, np.float32)
-    if p.er_cloud_on:
-        er_kernel = space.er_tap_kernel(int(p.er_taps), float(p.er_max_ms),
-                                        int(p.base_sr), int(p.seed))
-    ir_kernel = irm.astype(np.float32) if ir_on else np.zeros(2, np.float32)
-    if p.er_cloud_on and ir_on:
-        er_kernel = np.convolve(er_kernel.astype(np.float64),
-                                irm).astype(np.float32)
-    if len(_SPACE_KERNEL_CACHE) >= 8:
-        _SPACE_KERNEL_CACHE.pop(next(iter(_SPACE_KERNEL_CACHE)))
-    _SPACE_KERNEL_CACHE[key] = (er_kernel, ir_kernel, ir_on)
-    return er_kernel, ir_kernel, ir_on
+        er_kernel = np.zeros(2, np.float32)
+        if p.er_cloud_on:
+            er_kernel = space.er_tap_kernel(int(p.er_taps),
+                                            float(p.er_max_ms),
+                                            int(p.base_sr), int(p.seed))
+        ir_kernel = (irm.astype(np.float32) if ir_on
+                     else np.zeros(2, np.float32))
+        if p.er_cloud_on and ir_on:
+            er_kernel = np.convolve(er_kernel.astype(np.float64),
+                                    irm).astype(np.float32)
+        if len(_SPACE_KERNEL_CACHE) >= 8:
+            _SPACE_KERNEL_CACHE.pop(next(iter(_SPACE_KERNEL_CACHE)))
+        _SPACE_KERNEL_CACHE[key] = (er_kernel, ir_kernel, ir_on)
+        return er_kernel, ir_kernel, ir_on
 
 
 def fx_cfg(params: MicrosoundParams, out_n: int, ir_on: bool,
@@ -1076,12 +1085,13 @@ def render_program(params: MicrosoundParams, prog: dict, space_kernels,
     er_kernel, ir_kernel, ir_on = space_kernels
     fx = fx_cfg(params, prog["out_n"], ir_on, pcm16)
     cfg, chunks = None, []
-    if prog["E"] > 0:
-        ec = event_chunk or _event_chunk(prog["E"], prog["L"])
-        cfg = chain_cfg(params, prog)
-        chunks = [program_to_device(c, device)
-                  for c in _chunk_events(prog, ec)]
-    kern = program_to_device({"er": er_kernel, "ir": ir_kernel}, device)
+    with span("microsound.upload"):
+        if prog["E"] > 0:
+            ec = event_chunk or _event_chunk(prog["E"], prog["L"])
+            cfg = chain_cfg(params, prog)
+            chunks = [program_to_device(c, device)
+                      for c in _chunk_events(prog, ec)]
+        kern = program_to_device({"er": er_kernel, "ir": ir_kernel}, device)
     stereo, grain_last = render_device(cfg, fx, chunks, kern["er"],
                                        kern["ir"], progress)
     meta = {"out_sr": int(params.base_sr),
@@ -1106,11 +1116,12 @@ def render(params: MicrosoundParams, ir_audio=None, img_gray=None, *,
     the IR-fragment mode and the IR convolution.  ``progress(pct, msg)``,
     where given, hears of each chunk of a render of several and of the
     end, as in the JAX package."""
-    prog = build_program(params, ir_audio=ir_audio, img_gray=img_gray)
-    return render_program(params, prog, _space_kernels(params, ir_audio),
-                          device=device, event_chunk=event_chunk,
-                          pcm16=pcm16, want_micro_last=want_micro_last,
-                          progress=progress)
+    with span("microsound.render"):
+        prog = build_program(params, ir_audio=ir_audio, img_gray=img_gray)
+        return render_program(params, prog, _space_kernels(params, ir_audio),
+                              device=device, event_chunk=event_chunk,
+                              pcm16=pcm16, want_micro_last=want_micro_last,
+                              progress=progress)
 
 
 def _start_pull(stereo: torch.Tensor, stream):

@@ -32,6 +32,7 @@ from ..events.notes import (NoteEvent, RenderConfig, apply_time_ops,
 from ..ops import envelopes, overlap_add
 from ..ops import synth as synth_ops
 from ..utils import music
+from ..utils.profiling import span
 
 YM2612_DAC_BITS = 14     # app/constants.py
 POST_LP_HZ = 12000.0
@@ -348,24 +349,26 @@ def generate(name: str, cfg: RenderConfig, **kwargs) -> list[NoteEvent]:
     """Dispatch by (fuzzy) name (app/patterns.py:188-214); "Python Script"
     loads ``script_path``'s ``entry`` through the plugin host and calls it
     as ``fn(cfg=cfg, **kwargs)``."""
-    name = (name or '').strip().lower()
-    if 'python' in name:
-        from ..plugins.host import load_script_generator
-        script_path = kwargs.pop('script_path', '')
-        entry = kwargs.pop('entry', 'generate')
-        if not script_path:
-            raise ValueError("Python Script generator requires gen.script_path")
-        fn = load_script_generator(Path(script_path), entry)
-        return fn(cfg=cfg, **kwargs)
-    if 'glass' in name:
-        return pattern_glass_cells(cfg, **kwargs)
-    if 'fibonacci' in name:
-        return pattern_fibonacci(cfg, **kwargs)
-    if 'prime' in name:
-        return pattern_prime_phase(cfg, **kwargs)
-    if 'pythag' in name:
-        return pattern_pythagorean(cfg, **kwargs)
-    return pattern_glass_cells(cfg)
+    with span("patternlab.generate"):
+        name = (name or '').strip().lower()
+        if 'python' in name:
+            from ..plugins.host import load_script_generator
+            script_path = kwargs.pop('script_path', '')
+            entry = kwargs.pop('entry', 'generate')
+            if not script_path:
+                raise ValueError(
+                    "Python Script generator requires gen.script_path")
+            fn = load_script_generator(Path(script_path), entry)
+            return fn(cfg=cfg, **kwargs)
+        if 'glass' in name:
+            return pattern_glass_cells(cfg, **kwargs)
+        if 'fibonacci' in name:
+            return pattern_fibonacci(cfg, **kwargs)
+        if 'prime' in name:
+            return pattern_prime_phase(cfg, **kwargs)
+        if 'pythag' in name:
+            return pattern_pythagorean(cfg, **kwargs)
+        return pattern_glass_cells(cfg)
 
 
 # ----------------------------------------------------------------------------
@@ -540,8 +543,10 @@ class MegaDriveInspiredSynth:
     def prepare(self, events, seconds: float) -> PreparedRender:
         """``prepare_np`` with the packs uploaded to the synth's device:
         re-rendering the same program uploads nothing."""
-        return prepared_to_device(*self.prepare_np(events, seconds),
-                                  device=self.device)
+        with span("patternlab.pack"):
+            prog = self.prepare_np(events, seconds)
+        with span("patternlab.upload"):
+            return prepared_to_device(*prog, device=self.device)
 
     def render_prepared(self, prep: PreparedRender,
                         master_gain: float = 0.9,
@@ -553,7 +558,10 @@ class MegaDriveInspiredSynth:
         y = _render_dispatch(self.sr, self._fade, self._lp1, self._lp2,
                              self._psg_lp, self._dac_m1, prep,
                              master_gain, pcm16)
-        return y if device_out else y.cpu().numpy()
+        if device_out:
+            return y
+        with span("patternlab.pull"):
+            return y.cpu().numpy()
 
     def render(self, events, seconds: float, master_gain: float = 0.9,
                device_out: bool = False, pcm16: bool = False):
@@ -604,30 +612,35 @@ def _render_dispatch(sr: int, fade: int, lp1: float, lp2: float,
     out = torch.zeros(prep.n_total + l_max, dtype=torch.float32, device=dev)
     lfsr = synth_ops.lfsr_tables_on(dev) if "pgi" in prep.packs else None
     fm_off = pg_off = 0
-    for (is_psg, L, alg, vib, count) in prep.spec:
-        i_vec = torch.arange(L, dtype=torch.int32, device=dev)
-        if is_psg:
-            f32 = prep.packs["pg32"][pg_off: pg_off + count]
-            i32 = prep.packs["pgi"][pg_off: pg_off + count]
-            pg_off += count
-            notes = _psg_bank(f32, i32, i_vec, fade, psg_lp, sr, lfsr)
-        else:
-            f32 = prep.packs["fm32"][fm_off: fm_off + count]
-            i32 = prep.packs["fmi"][fm_off: fm_off + count]
-            fm_off += count
-            notes = _fm_bank(f32, i32, i_vec, alg, vib, fade, lp1, lp2,
-                             dac_m1, sr)
-        # overlap-add with the tail clamp (app/renderer.py:113-131)
-        starts = i32[:, 1].contiguous()
-        seg = torch.minimum(i32[:, 0:1], prep.n_total - starts[:, None])
-        contrib = torch.where(i_vec < seg, notes, 0.0).contiguous()
-        overlap_add.overlap_add(out, contrib, starts)
-    y = torch.tanh(out[:prep.n_total]) * float(np.float32(master_gain))
-    if pcm16:
-        # PCM16 on the device (the reference saves PCM_16 WAVs)
-        return torch.clamp(torch.round(y * 32768.0), -32768.0, 32767.0) \
-            .to(torch.int16)
-    return y
+    with span("patternlab.bank", device=dev):
+        for (is_psg, L, alg, vib, count) in prep.spec:
+            i_vec = torch.arange(L, dtype=torch.int32, device=dev)
+            if is_psg:
+                f32 = prep.packs["pg32"][pg_off: pg_off + count]
+                i32 = prep.packs["pgi"][pg_off: pg_off + count]
+                pg_off += count
+                with span("patternlab.psg_bank"):
+                    notes = _psg_bank(f32, i32, i_vec, fade, psg_lp, sr,
+                                      lfsr)
+            else:
+                f32 = prep.packs["fm32"][fm_off: fm_off + count]
+                i32 = prep.packs["fmi"][fm_off: fm_off + count]
+                fm_off += count
+                with span("patternlab.fm_bank"):
+                    notes = _fm_bank(f32, i32, i_vec, alg, vib, fade, lp1,
+                                     lp2, dac_m1, sr)
+            # overlap-add with the tail clamp (app/renderer.py:113-131)
+            starts = i32[:, 1].contiguous()
+            seg = torch.minimum(i32[:, 0:1], prep.n_total - starts[:, None])
+            contrib = torch.where(i_vec < seg, notes, 0.0).contiguous()
+            overlap_add.overlap_add(out, contrib, starts)
+    with span("patternlab.master", device=dev):
+        y = torch.tanh(out[:prep.n_total]) * float(np.float32(master_gain))
+        if pcm16:
+            # PCM16 on the device (the reference saves PCM_16 WAVs)
+            return torch.clamp(torch.round(y * 32768.0), -32768.0,
+                               32767.0).to(torch.int16)
+        return y
 
 
 _RENDER_CACHE: OrderedDict = OrderedDict()
@@ -643,24 +656,29 @@ def render(events, cfg: RenderConfig, fm_channels=None, psg_channels=None,
     at 8 programs: callers must not mutate the events list in place
     between renders (regenerate instead).  master_gain is applied at
     render time, not baked into the program."""
-    key = (id(events), id(fm_channels), id(psg_channels),
-           json.dumps(dataclasses.asdict(cfg), sort_keys=True, default=str),
-           str(torch.device(device)))
-    ent = _RENDER_CACHE.pop(key, None)
-    if ent is None or ent["events"] is not events:
-        ev = apply_time_ops(events, cfg)
-        s = MegaDriveInspiredSynth(cfg.sample_rate, seed=cfg.seed,
-                                   fm_channels=fm_channels,
-                                   psg_channels=psg_channels, device=device)
-        ent = {"events": events, "ev": ev, "synth": s,
-               "prep": s.prepare(ev, cfg.seconds)}
-    _RENDER_CACHE[key] = ent
-    while len(_RENDER_CACHE) > 8:
-        _RENDER_CACHE.popitem(last=False)
-    y = ent["synth"].render_prepared(ent["prep"],
-                                     master_gain=cfg.master_gain,
-                                     pcm16=pcm16)
-    return y, ent["ev"]
+    with span("patternlab.render") as sp:
+        key = (id(events), id(fm_channels), id(psg_channels),
+               json.dumps(dataclasses.asdict(cfg), sort_keys=True,
+                          default=str),
+               str(torch.device(device)))
+        ent = _RENDER_CACHE.pop(key, None)
+        hit = ent is not None and ent["events"] is events
+        sp.set(memo_hit=hit)
+        if not hit:
+            ev = apply_time_ops(events, cfg)
+            s = MegaDriveInspiredSynth(cfg.sample_rate, seed=cfg.seed,
+                                       fm_channels=fm_channels,
+                                       psg_channels=psg_channels,
+                                       device=device)
+            ent = {"events": events, "ev": ev, "synth": s,
+                   "prep": s.prepare(ev, cfg.seconds)}
+        _RENDER_CACHE[key] = ent
+        while len(_RENDER_CACHE) > 8:
+            _RENDER_CACHE.popitem(last=False)
+        y = ent["synth"].render_prepared(ent["prep"],
+                                         master_gain=cfg.master_gain,
+                                         pcm16=pcm16)
+        return y, ent["ev"]
 
 
 def render_device(events, cfg: RenderConfig, fm_channels=None,

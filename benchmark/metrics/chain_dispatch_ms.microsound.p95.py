@@ -1,0 +1,7 @@
+"""chain_dispatch_ms.microsound.p95: ``chain_dispatch_ms.microsound`` (the
+``microsound.chain`` span), read alike, in the cells whose end-to-end
+metric it moves is ``render_ms_p95`` (``ms-c3-stickslip``)."""
+from benchmark import spec
+
+_base = spec.load_module("metrics", "chain_dispatch_ms.microsound")
+read = _base.read
