@@ -18,6 +18,7 @@ import shutil
 import subprocess
 import threading
 
+import numpy as np
 import torch
 
 from ..utils.profiling import span
@@ -105,6 +106,22 @@ _SIGNATURES = {
                           ctypes.c_int, _P], ctypes.c_int),
         "gs_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
+    "voice_bank": {
+        "vb_fm_launch": ([_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P,
+                          _P], ctypes.c_int),
+        "vb_psg_launch": ([_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P,
+                           ctypes.c_int, _P, _P], ctypes.c_int),
+        "vb_fir_launch": ([_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_int, _P, _P, _P],
+                          ctypes.c_int),
+        "vb_scan_launch": ([_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P,
+                            _P], ctypes.c_int),
+        "vb_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
     "tape_scan": {
         "ts_launch": ([_P, ctypes.c_int, _P, ctypes.c_longlong, _P, _P, _P,
                        _P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int,
@@ -123,6 +140,11 @@ TAPE_SCAN_CHUNKS = (32, 4096)  # this range (kMinChunk, kMaxChunk)
 TAPE_SCAN_REC_WORDS = 8  # a chunk's record (kRecWords); bit 0 of word 5:
 #                          jumped
 MAX_HEADS = 3           # scrub_read_kernel's head slots (lerp_read.cu)
+VOICE_BANK_MAX_TAPS = 64  # a one-pole lowpass of fewer taps is a truncated
+#                           FIR (ops/synth.py:_fir_len), others the doubling
+#                           scan; voice_bank.cu's FIRs hold kMaxTaps = 63
+VOICE_BANK_TILE = 1024    # voice_bank.cu's kTile: the scan's first pass
+#                           takes its steps d < it
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -400,6 +422,152 @@ def waveguide_scan(x: torch.Tensor, d: torch.Tensor, g: torch.Tensor,
 
 
 waveguide_scan.launches = 0
+
+
+def _vb_run(fn: str, dev, *args):
+    lib = _lib("voice_bank")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, fn)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"voice_bank kernel {fn} launch failed: "
+                           + lib.vb_error_string(rc).decode())
+
+
+def _vb_check(name: str, f32, i32, widths, L: int, taps, consts):
+    count = f32.shape[0] if f32.dim() == 2 else -1
+    _scan_check(name, (f32, i32), (torch.float32, torch.int32),
+                ((count, widths[0]), (count, widths[1])))
+    if L < 1 or not (all(1 <= k < VOICE_BANK_MAX_TAPS for k in taps)
+                     or not any(taps)):
+        raise ValueError(f"{name} kernel: L {L}, taps {taps} (L >= 1, "
+                         f"1 to {VOICE_BANK_MAX_TAPS - 1} taps, or all 0)")
+    if consts.dtype != np.float32 or consts.ndim != 1:
+        raise TypeError(f"{name} kernel: consts must be a host f32 vector")
+    return count
+
+
+def voice_bank_fm(f32: torch.Tensor, i32: torch.Tensor, L: int,
+                  n_total: int, alg: int, vib: bool, fade: int, taps1: int,
+                  taps2: int, consts: np.ndarray) -> torch.Tensor:
+    """Launch ``voice_bank.cu``'s FM bank on the current stream and return
+    the new f32 [count, L] of one bucket's masked notes, from its rows f32
+    [count, 36] and i32 [count, 26] of the fm32 / fmi packs (contiguous, on
+    one CUDA device), algorithm ``alg`` (1-3), the vibrato flag, the
+    render's length, the fade's samples, the two lowpasses' tap counts
+    (both 0: the signal unfiltered) and the host constants ``consts``
+    (``ops/synth.py:bank_consts``)."""
+    count = _vb_check("voice_bank_fm", f32, i32, (36, 26), L,
+                      (taps1, taps2), consts)
+    if alg not in (1, 2, 3):
+        raise ValueError(f"voice_bank_fm kernel: algorithm {alg}")
+    out = torch.empty(count, L, dtype=torch.float32, device=f32.device)
+    if count:
+        _vb_run("vb_fm_launch", f32.device, f32.data_ptr(), i32.data_ptr(),
+                count, L, int(n_total), int(alg), int(bool(vib)), int(fade),
+                int(taps1), int(taps2), consts.ctypes.data, consts.size,
+                out.data_ptr())
+        voice_bank_fm.launches += 1
+    return out
+
+
+voice_bank_fm.launches = 0
+
+
+def voice_bank_psg(f32: torch.Tensor, i32: torch.Tensor, L: int,
+                   n_total: int, lfsr, fade: int, taps: int,
+                   consts: np.ndarray) -> torch.Tensor:
+    """Launch ``voice_bank.cu``'s PSG bank on the current stream and
+    return the new f32 [count, L] of one bucket's masked notes, from its
+    rows f32 [count, 10] and i32 [count, 10] of the pg32 / pgi packs, the
+    LFSR orbit tables ``lfsr`` (orbit f32, base / pos / len i32, each
+    [2**15], on the packs' device), the render's length, the fade's
+    samples, the lowpass's tap count (0: the signal unfiltered) and the
+    host constants."""
+    count = _vb_check("voice_bank_psg", f32, i32, (10, 10), L, (taps,),
+                      consts)
+    orbit, base, pos, clen = lfsr
+    n = 1 << 15
+    _scan_check("voice_bank_psg", (f32, orbit, base, pos, clen),
+                (torch.float32, torch.float32) + (torch.int32,) * 3,
+                (f32.shape,) + ((n,),) * 4)
+    out = torch.empty(count, L, dtype=torch.float32, device=f32.device)
+    if count:
+        _vb_run("vb_psg_launch", f32.device, f32.data_ptr(), i32.data_ptr(),
+                count, L, int(n_total), orbit.data_ptr(), base.data_ptr(),
+                pos.data_ptr(), clen.data_ptr(), int(fade), int(taps),
+                consts.ctypes.data, consts.size, out.data_ptr())
+        voice_bank_psg.launches += 1
+    return out
+
+
+voice_bank_psg.launches = 0
+
+
+def _vb_rows(name: str, x, i32):
+    count = x.shape[0] if x.dim() == 2 else -1
+    _scan_check(name, (x, i32), (torch.float32, torch.int32),
+                (x.shape, (count, i32.shape[-1])))
+    if i32.shape[-1] < 2 or x.shape[1] < 1:
+        raise ValueError(f"{name} kernel: rows {tuple(x.shape)}, "
+                         f"ints {tuple(i32.shape)}")
+    return count, x.shape[1]
+
+
+def voice_bank_fir(x: torch.Tensor, i32: torch.Tensor, n_total: int,
+                   w: np.ndarray) -> torch.Tensor:
+    """Launch ``voice_bank.cu``'s FIR pass on the current stream: the new
+    f32 [count, L] of the truncated FIR of host f32 weights ``w`` (1 to 63
+    taps: y = w0*x, then y + w_k*x[i-k]) along each row of ``x`` f32
+    [count, L], zero from each row's clamp min(n, n_total - start) on; n
+    and start are the first two columns of ``i32`` int32 [count, W]."""
+    count, L = _vb_rows("voice_bank_fir", x, i32)
+    if w.dtype != np.float32 or not 1 <= w.size < VOICE_BANK_MAX_TAPS:
+        raise ValueError(f"voice_bank_fir kernel: weights {w.dtype} "
+                         f"{w.shape}")
+    w = np.ascontiguousarray(w)
+    out = torch.empty_like(x)
+    if count:
+        _vb_run("vb_fir_launch", x.device, x.data_ptr(), i32.data_ptr(),
+                i32.shape[1], count, L, int(n_total), w.size, w.ctypes.data,
+                out.data_ptr())
+        voice_bank_fir.launches += 1
+    return out
+
+
+voice_bank_fir.launches = 0
+
+
+def voice_bank_scan(x: torch.Tensor, i32: torch.Tensor, n_total: int,
+                    coefs: np.ndarray) -> torch.Tensor:
+    """Launch ``voice_bank.cu``'s doubling scan of a one-pole lowpass on
+    the current stream: the new f32 [count, L] of ``ops/synth.py:
+    _one_pole_scan`` along each row of ``x``, zero from each row's clamp
+    on (rows and clamp as for ``voice_bank_fir``); ``coefs`` the host f32
+    [32] (1 - a, a, a**2, a**4, ..., a**(2**30)) of
+    ``synth.scan_coefs``.  One launch for
+    the steps d < VOICE_BANK_TILE, one for each later step d < L."""
+    count, L = _vb_rows("voice_bank_scan", x, i32)
+    if coefs.dtype != np.float32 or coefs.shape != (32,):
+        raise ValueError(f"voice_bank_scan kernel: coefs {coefs.dtype} "
+                         f"{coefs.shape}, not f32 (32,)")
+    out = torch.empty_like(x)
+    if not count:
+        return out
+    tmp = torch.empty_like(x) if L > VOICE_BANK_TILE else None
+    d, src = 0, x
+    while True:
+        _vb_run("vb_scan_launch", x.device, src.data_ptr(), i32.data_ptr(),
+                i32.shape[1], count, L, int(n_total), d, coefs.ctypes.data,
+                coefs.size, out.data_ptr())
+        voice_bank_scan.launches += 1
+        d = max(2 * d, VOICE_BANK_TILE)
+        if d >= L:
+            return out
+        src, out = out, (tmp if src is x else src)
+
+
+voice_bank_scan.launches = 0
 
 
 def tape_scan(audio: torch.Tensor, mod_q: torch.Tensor, starts: torch.Tensor,

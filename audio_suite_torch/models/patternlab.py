@@ -11,7 +11,9 @@ algorithmic patterns through an FM + PSG voice bank.
   flag, or PSG notes of one L) renders as a batch of notes [count, L]
   (``ops/synth.py``), is masked to the render's end and overlap-added in
   bucket order into a margin buffer (``ops/overlap_add.py``: the CUDA
-  kernel on the card); then the tanh master bus and optionally PCM16.
+  kernel on the card); on the card a bucket's notes and mask run in
+  ``kernels/voice_bank.cu``; then the tanh master bus and optionally
+  PCM16.
 
 Entry points run on ``device="cuda"`` unless the caller passes another
 device.
@@ -23,6 +25,7 @@ import json
 from collections import OrderedDict
 from dataclasses import dataclass
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -563,6 +566,13 @@ class MegaDriveInspiredSynth:
         with span("patternlab.pull"):
             return y.cpu().numpy()
 
+    def bucket_contrib(self, b: Bucket, n_total: int, fused: bool):
+        """One bucket's masked notes f32 [count, L] with this synth's
+        constants, in ``voice_bank.cu`` or op by op (``fused``)."""
+        return _bucket_contrib(b, n_total, fused, self.sr, self._fade,
+                               self._lp1, self._lp2, self._psg_lp,
+                               self._dac_m1)
+
     def render(self, events, seconds: float, master_gain: float = 0.9,
                device_out: bool = False, pcm16: bool = False):
         prep = self.prepare(events, seconds)
@@ -598,6 +608,65 @@ def _psg_bank(f32, i32, i_vec, fade, psg_lp, sr, lfsr):
                     f32[:, 7:8], f32[:, 8:9], f32[:, 9:10]))
 
 
+def _tail_clamped(notes, i32, i_vec, n_total: int):
+    """A bucket's notes zeroed from seg = min(n, n_total - start) on, the
+    overlap-add's tail clamp (app/renderer.py:113-131)."""
+    seg = torch.minimum(i32[:, 0:1], n_total - i32[:, 1:2])
+    return torch.where(i_vec < seg, notes, 0.0).contiguous()
+
+
+class Bucket(NamedTuple):
+    """A bucket of a prepared program: its spec entry, its rows of the
+    packs (``f32`` / ``i32``: fm32 / fmi, or pg32 / pgi for PSG) and their
+    starts (i32 [count], contiguous)."""
+    is_psg: bool
+    L: int
+    alg: int
+    vib: bool
+    f32: torch.Tensor
+    i32: torch.Tensor
+    starts: torch.Tensor
+
+
+def buckets(prep: PreparedRender) -> list[Bucket]:
+    """The buckets of ``prep`` in spec order, notes in row order."""
+    # the start columns, once a program: a bucket takes its rows' slice
+    starts = {k: prep.packs[k][:, 1].contiguous()
+              for k in ("fmi", "pgi") if k in prep.packs}
+    offs = {False: 0, True: 0}
+    out = []
+    for (is_psg, L, alg, vib, count) in prep.spec:
+        k32, ki = ("pg32", "pgi") if is_psg else ("fm32", "fmi")
+        rows = slice(offs[is_psg], offs[is_psg] + count)
+        offs[is_psg] += count
+        out.append(Bucket(is_psg, L, alg, vib, prep.packs[k32][rows],
+                          prep.packs[ki][rows], starts[ki][rows]))
+    return out
+
+
+def _bucket_contrib(b: Bucket, n_total: int, fused: bool, sr: int,
+                    fade: int, lp1: float, lp2: float, psg_lp: float,
+                    dac_m1: float):
+    """One bucket's notes zeroed from min(n, n_total - start) on, f32
+    [count, L]: in ``kernels/voice_bank.cu`` with ``fused``
+    (``synth_ops.fm_bank_fused`` / ``psg_bank_fused``), else op by op
+    (``_fm_bank`` / ``_psg_bank`` and the mask)."""
+    dev = b.f32.device
+    lfsr = synth_ops.lfsr_tables_on(dev) if b.is_psg else None
+    if fused and b.is_psg:
+        return synth_ops.psg_bank_fused(b.f32, b.i32, b.L, n_total, fade,
+                                        psg_lp, sr, lfsr)
+    if fused:
+        return synth_ops.fm_bank_fused(b.f32, b.i32, b.L, n_total, b.alg,
+                                       b.vib, fade, lp1, lp2, dac_m1, sr)
+    i_vec = torch.arange(b.L, dtype=torch.int32, device=dev)
+    notes = (_psg_bank(b.f32, b.i32, i_vec, fade, psg_lp, sr, lfsr)
+             if b.is_psg else
+             _fm_bank(b.f32, b.i32, i_vec, b.alg, b.vib, fade, lp1, lp2,
+                      dac_m1, sr))
+    return _tail_clamped(notes, b.i32, i_vec, n_total)
+
+
 def _render_dispatch(sr: int, fade: int, lp1: float, lp2: float,
                      psg_lp: float, dac_m1: float, prep: PreparedRender,
                      master_gain: float, pcm16: bool = False):
@@ -606,34 +675,26 @@ def _render_dispatch(sr: int, fade: int, lp1: float, lp2: float,
     seg = min(n, n_total - start) and the overlap-add into a zero margin
     buffer of n_total + l_max samples, where every note window fits
     unclamped; buckets in spec order, notes in row order.  Then
-    tanh(out[:n_total]) * master_gain, and PCM16 with ``pcm16``."""
+    tanh(out[:n_total]) * master_gain, and PCM16 with ``pcm16``.
+
+    On a CUDA device a bucket's notes and mask run in
+    ``kernels/voice_bank.cu`` (``synth_ops.bank_fused``); elsewhere
+    ``_fm_bank`` / ``_psg_bank`` run op by op.  The ``patternlab.bank``
+    span counts the buckets of each path (``fused``, ``eager``)."""
     dev = prep.device
     l_max = max([L for (_p, L, _a, _v, _c) in prep.spec] + [1])
     out = torch.zeros(prep.n_total + l_max, dtype=torch.float32, device=dev)
-    lfsr = synth_ops.lfsr_tables_on(dev) if "pgi" in prep.packs else None
-    fm_off = pg_off = 0
-    with span("patternlab.bank", device=dev):
-        for (is_psg, L, alg, vib, count) in prep.spec:
-            i_vec = torch.arange(L, dtype=torch.int32, device=dev)
-            if is_psg:
-                f32 = prep.packs["pg32"][pg_off: pg_off + count]
-                i32 = prep.packs["pgi"][pg_off: pg_off + count]
-                pg_off += count
-                with span("patternlab.psg_bank"):
-                    notes = _psg_bank(f32, i32, i_vec, fade, psg_lp, sr,
-                                      lfsr)
-            else:
-                f32 = prep.packs["fm32"][fm_off: fm_off + count]
-                i32 = prep.packs["fmi"][fm_off: fm_off + count]
-                fm_off += count
-                with span("patternlab.fm_bank"):
-                    notes = _fm_bank(f32, i32, i_vec, alg, vib, fade, lp1,
-                                     lp2, dac_m1, sr)
-            # overlap-add with the tail clamp (app/renderer.py:113-131)
-            starts = i32[:, 1].contiguous()
-            seg = torch.minimum(i32[:, 0:1], prep.n_total - starts[:, None])
-            contrib = torch.where(i_vec < seg, notes, 0.0).contiguous()
-            overlap_add.overlap_add(out, contrib, starts)
+    fused = synth_ops.bank_fused(dev)
+    bank = buckets(prep)
+    with span("patternlab.bank", device=dev) as sp:
+        for b in bank:
+            with span("patternlab.psg_bank" if b.is_psg
+                      else "patternlab.fm_bank"):
+                contrib = _bucket_contrib(b, prep.n_total, fused, sr, fade,
+                                          lp1, lp2, psg_lp, dac_m1)
+            overlap_add.overlap_add(out, contrib, b.starts)
+        sp.set(fused=len(bank) if fused else 0,
+               eager=0 if fused else len(bank))
     with span("patternlab.master", device=dev):
         y = torch.tanh(out[:prep.n_total]) * float(np.float32(master_gain))
         if pcm16:

@@ -13,6 +13,12 @@ feedback products take ``round_sig12`` operands, the vibrato uses the
 precise twins, and the envelope takes host reciprocals.  A last-ulp
 difference upstream of the 14-bit DAC quantizer would flip a whole
 quantization step (about -78 dBFS).
+
+On a CUDA device a bucket of the render's voice bank runs in
+``kernels/voice_bank.cu`` instead (``fm_bank_fused``, ``psg_bank_fused``;
+one launch, a few passes more for a lowpass too long for an FIR), which
+computes the same ops with the same roundings; ``bank_fused`` says where
+it runs.
 """
 from __future__ import annotations
 
@@ -22,9 +28,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import kernels
 from . import detmath
 from .envelopes import adsr_clamped, adsr_from_consts, micro_fade_gain
-from .fixq import round_sig12
+from .fixq import round_sig12, sig12_pair_np
 
 
 def _f32(x) -> float:
@@ -51,12 +58,21 @@ def quantize_to_bits(x, levels_minus_1, inv_levels_m1):
 
 def _fir_len(a: float) -> int:
     """Taps K of the truncated impulse response (1-a)*a**k: the first k
-    with a**k < 2**-31, at most 64."""
+    with a**k < 2**-31, at most ``kernels.VOICE_BANK_MAX_TAPS`` (64), where
+    the filter runs as the doubling scan instead."""
     K, p = 1, a
-    while p >= 2.0 ** -31 and K < 64:
+    while p >= 2.0 ** -31 and K < kernels.VOICE_BANK_MAX_TAPS:
         p *= a
         K += 1
     return K
+
+
+def fir_weights(a) -> np.ndarray:
+    """The truncated FIR's f32 weights (1-a)*a**k of the f32 ``a``, from
+    float64."""
+    af = _f32(a)
+    return ((1.0 - np.float64(af)) * np.float64(af)
+            ** np.arange(_fir_len(af))).astype(np.float32)
 
 
 def one_pole_lp(x: torch.Tensor, a) -> torch.Tensor:
@@ -67,13 +83,11 @@ def one_pole_lp(x: torch.Tensor, a) -> torch.Tensor:
     weights from float64, as in the JAX package; a coefficient too close
     to 1 for that (K would reach 64) runs a log-depth scan."""
     af = _f32(a)
-    K = _fir_len(af)
-    if K >= 64:
+    if _fir_len(af) >= kernels.VOICE_BANK_MAX_TAPS:
         return _one_pole_scan(x, af)
-    w = ((1.0 - np.float64(af)) * np.float64(af) ** np.arange(K)) \
-        .astype(np.float32)
+    w = fir_weights(af)
     y = float(w[0]) * x
-    for k in range(1, K):
+    for k in range(1, len(w)):
         xk = F.pad(x, (k, 0))[..., :-k]
         y = y + float(w[k]) * xk
     return y
@@ -288,3 +302,111 @@ def fm_note(i, n, f_ops, vel, chan_params, fade_samples, lp_a1, lp_a2,
     y = one_pole_lp(y, lp_a1)
     y = one_pole_lp(y, lp_a2)
     return torch.where(i < n, y, 0.0)
+
+
+# ----------------------------------------------------------------------------
+# The voice bank as one kernel a bucket (kernels/voice_bank.cu)
+# ----------------------------------------------------------------------------
+
+# voice_bank.cu's BankConsts, field for field: (name, floats)
+BANK_CONSTS = (("sin_c", 5), ("cos_c", 5), ("exp2_c", 7), ("sin4_pair", 2),
+               ("cos4_pair", 2), ("exp26_pair", 2), ("inv_sr", 1), ("pi", 1),
+               ("inv12", 1), ("alg2_gain", 1), ("dac_m1", 1), ("inv_dac", 1),
+               ("w1", kernels.VOICE_BANK_MAX_TAPS - 1),
+               ("w2", kernels.VOICE_BANK_MAX_TAPS - 1))
+
+
+def bank_fused(device) -> bool:
+    """Whether a render's voice bank runs in ``voice_bank.cu``: on a CUDA
+    device, and there for every bucket; elsewhere op by op."""
+    return torch.device(device).type == "cuda"
+
+
+def _is_fir(a: float) -> bool:
+    return _fir_len(a) < kernels.VOICE_BANK_MAX_TAPS
+
+
+@lru_cache(maxsize=16)
+def bank_consts(sr: int, lp_a1: float, lp_a2: float | None = None,
+                dac_m1: float = 1.0) -> np.ndarray:
+    """The kernel's constants as f32 [sum of BANK_CONSTS]: the detmath
+    polynomials and the 12-bit splits of their first Horner constants,
+    the voices' scalar constants (the FM's DAC levels ``dac_m1``) and the
+    FIR weights of the lowpasses ``lp_a1`` (the PSG's one) and ``lp_a2``,
+    zero-padded (all zero for a lowpass that runs as the scan)."""
+    def taps(a):
+        w = np.zeros(kernels.VOICE_BANK_MAX_TAPS - 1, np.float32)
+        if a is not None and _is_fir(a):
+            fw = fir_weights(a)
+            w[:len(fw)] = fw
+        return w
+
+    vals = {"sin_c": detmath._S32, "cos_c": detmath._C32,
+            "exp2_c": detmath._E2C,
+            "sin4_pair": sig12_pair_np(detmath._S32[4]),
+            "cos4_pair": sig12_pair_np(detmath._C32[4]),
+            "exp26_pair": sig12_pair_np(detmath._E2C[6]),
+            "inv_sr": 1.0 / float(sr), "pi": np.pi, "inv12": 1.0 / 12.0,
+            "alg2_gain": 0.6, "dac_m1": dac_m1,
+            "inv_dac": np.float32(1.0 / float(dac_m1)),
+            "w1": taps(lp_a1), "w2": taps(lp_a2)}
+    out = np.concatenate([np.asarray(vals[k], np.float32).reshape(-1)
+                          for k, _ in BANK_CONSTS])
+    out.flags.writeable = False
+    return out
+
+
+@lru_cache(maxsize=16)
+def scan_coefs(af: float) -> np.ndarray:
+    """``_one_pole_scan``'s constants of the f32 ``af`` as f32 [32]: 1 - a,
+    then the multiplier of each step d = 2**s, s = 0 .. 30: a**d squared
+    up in f32, as the scan's A is where i >= d."""
+    p = [np.float32(af)]
+    for _ in range(30):
+        p.append(p[-1] * p[-1])
+    out = np.array([np.float32(1.0) - np.float32(af)] + p, np.float32)
+    out.flags.writeable = False
+    return out
+
+
+def _lowpass_fused(x, i32, n_total: int, af: float):
+    """One lowpass of ``af`` as a pass of its own over a bucket's rows."""
+    if _is_fir(af):
+        return kernels.voice_bank_fir(x, i32, n_total, fir_weights(af))
+    return kernels.voice_bank_scan(x, i32, n_total, scan_coefs(af))
+
+
+def fm_bank_fused(f32, i32, L: int, n_total: int, alg: int, vib: bool,
+                  fade_samples: int, lp_a1, lp_a2, dac_m1, sr):
+    """One FM bucket's masked contributions f32 [count, L] from its rows
+    of the fm32 / fmi packs (``MegaDriveInspiredSynth.prepare_np``'s
+    columns): ``fm_note`` with ``alg_static`` and ``vib_static``, then
+    zero from min(n, n_total - start) on.  One launch where both lowpasses
+    are FIRs; else the signal, then each lowpass as a pass."""
+    a1, a2 = _f32(lp_a1), _f32(lp_a2)
+    consts = bank_consts(int(sr), a1, a2, float(dac_m1))
+    if _is_fir(a1) and _is_fir(a2):
+        return kernels.voice_bank_fm(f32, i32, L, n_total, alg, vib,
+                                     fade_samples, _fir_len(a1),
+                                     _fir_len(a2), consts)
+    x = kernels.voice_bank_fm(f32, i32, L, n_total, alg, vib, fade_samples,
+                              0, 0, consts)
+    x = _lowpass_fused(x, i32, n_total, a1)
+    return _lowpass_fused(x, i32, n_total, a2)
+
+
+def psg_bank_fused(f32, i32, L: int, n_total: int, fade_samples: int, lp_a,
+                   sr, lfsr):
+    """One PSG bucket's masked contributions f32 [count, L] from its rows
+    of the pg32 / pgi packs and the orbit tables ``lfsr``
+    (``lfsr_tables_on``): ``psg_note``, then zero from min(n, n_total -
+    start) on.  One launch where the lowpass is an FIR; else the signal,
+    then the scan."""
+    a = _f32(lp_a)
+    consts = bank_consts(int(sr), a)
+    if _is_fir(a):
+        return kernels.voice_bank_psg(f32, i32, L, n_total, lfsr,
+                                      fade_samples, _fir_len(a), consts)
+    x = kernels.voice_bank_psg(f32, i32, L, n_total, lfsr, fade_samples, 0,
+                               consts)
+    return _lowpass_fused(x, i32, n_total, a)

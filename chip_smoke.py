@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --scan-ab path/to/grain_scan.cu
     python3 chip_smoke.py --tape-scan-ab path/to/tape_scan.cu
+    python3 chip_smoke.py --bank
 
 The second form builds the kernels, then only holds another grain_scan.cu
 (e.g. an earlier commit's, from ``git archive`` into the git-ignored
@@ -13,6 +14,10 @@ its own noise meets it with its whole path (two ``noise.normal`` draws
 and its row kernel).  The third does the same for another tape_scan.cu
 at config 1's full size (``tape_scan_ab``): a source whose ``ts_launch``
 takes per-sample scratch (idx0, fr, gi), as the one-warp design's does.
+The fourth runs only Pattern Lab's voice bank (``voice_bank_path``, which
+the first form runs after phase 5): the fused bank of
+``kernels/voice_bank.cu`` against the eager bank at the benchmark's
+``regen-20s`` and ``regen-120s`` shapes and at 230 kHz (the scan).
 
 Drives audio_suite_torch's ported paths at full size on the card, in
 phases; any failure raises and the exit code is non-zero.  The paths:
@@ -303,13 +308,16 @@ SLEEP_CYCLES = 10_000_000  # ~5 ms at the H100's clock: longer than the host
 FLUSH_BYTES = 256 << 20    # read before each L2-flushed call (L2: 50 MB)
 HBM_BYTES_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOP_S = 67e12         # H100 SXM f32 rate outside the tensor cores
-KERNELS = ("overlap_add", "lerp_read", "grain_scan", "tape_scan")  # one
-#                                                      nvcc each
-# launch-counting wrappers: lerp_read.cu's two kernels and grain_scan.cu's
-# four entry points count apart
+KERNELS = ("overlap_add", "lerp_read", "grain_scan", "tape_scan",
+           "voice_bank")                               # one nvcc each
+# launch-counting wrappers: lerp_read.cu's two kernels, grain_scan.cu's
+# four entry points and voice_bank.cu's four count apart
 WRAPPERS = ("overlap_add", "lerp_read", "scrub_read", "stick_slip_scan",
             "stick_slip_noise_scan", "chaos_scan", "waveguide_scan",
-            "tape_scan")
+            "tape_scan", "voice_bank_fm", "voice_bank_psg", "voice_bank_fir",
+            "voice_bank_scan")
+F32_OP_S = F32_FLOP_S / 2  # unfused f32 multiplies or adds a second
+BANK_SEED = 123457         # the voice bank's timed programs
 TAPE_SECONDS = 180.0   # bench config 1's tape and target length
 TAPE_FRAMES = 8745204  # its output frames after the retime
 PL_SECONDS = 8.0       # bench config 4's render length
@@ -611,6 +619,23 @@ def profile_renders(fn, renders: int) -> dict:
             "top": [(name.replace("at::native::", "")[:160],
                      t / 1e3 / renders, c / renders)
                     for name, (t, c) in top]}
+
+
+def kernel_ms_in(fn, renders: int, name: str):
+    """Device ms a call of fn() spends in kernels whose name holds
+    ``name``, in one ``torch.profiler`` window of ``renders`` calls after a
+    warm-up call; None if the profiler saw none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(renders):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and name in e.name]
+    return sum(us) / 1e3 / renders if us else None
 
 
 def ptxas_summary(so: str) -> list:
@@ -950,6 +975,150 @@ def tape_path(dev, card: str) -> dict:
             "library_ms": None}
 
 
+def bank_ops(is_psg: bool, alg: int, vib: bool, taps: tuple) -> int:
+    """f32 multiplies and adds of one note-sample of a bucket, counted
+    from ``voice_bank.cu``'s straight line: a lower count (no envelope
+    ramp, feedback or fade, no selects, conversions or integer ops), so
+    the bound it gives is a least time.  Each operator: the carrier (2),
+    the sine (21), level and envelope (2), the vibrato ratio (1) and the
+    phase-modulation term (2) where used; the vibrato ratio (120: the
+    precise sine 66, exp2 51, 3 more); then velocity, DAC quantizer and
+    fade (4), and each FIR (2 K - 1).  A PSG note: envelope and velocity
+    (2), DAC (2), fade (1) and its FIR (a noise note needs no phase)."""
+    fir = sum(2 * k - 1 for k in taps)
+    if is_psg:
+        return 5 + fir
+    pm = {1: 3, 2: 2, 3: 0}[alg]
+    ops = 1 + 4 * (25 + int(vib)) + 2 * pm + {1: 0, 2: 2, 3: 4}[alg]
+    return ops + (120 if vib else 0) + 4 + fir
+
+
+def bank_program(dev, seconds: float, sr: int = 44100):
+    """The benchmark's Pattern Lab request at ``seconds`` (RenderConfig's
+    defaults but ``sr``, the four builtin generators, seed BANK_SEED):
+    (synth, PreparedRender)."""
+    from audio_suite_torch.models import patternlab as pl
+
+    cfg = pl.RenderConfig(sample_rate=sr, seconds=seconds, seed=BANK_SEED)
+    events = [e for g in pl.list_generators() if g != "Python Script"
+              for e in pl.generate(g, cfg)]
+    synth = pl.MegaDriveInspiredSynth(sr, seed=cfg.seed, device=dev)
+    return synth, synth.prepare(pl.apply_time_ops(events, cfg), cfg.seconds)
+
+
+def voice_bank_case(dev, card: str, label: str, seconds: float,
+                    sr: int = 44100) -> dict:
+    """One program's bank: every bucket's fused contributions bit-equal
+    to the eager bank's; the fused bank of a render timed warm
+    (``kernel_ms``, every bucket once a call) beside its bound where
+    every lowpass is an FIR, and the eager bank (``cuda_ms``); a render's
+    launches and profiler line."""
+    from audio_suite_torch.models import patternlab as pl
+    from audio_suite_torch.ops import synth as sy
+
+    synth, prep = bank_program(dev, seconds, sr)
+    lps = (synth._lp1, synth._lp2, synth._psg_lp)
+    taps = [sy._fir_len(sy._f32(a)) for a in lps]
+    firs = max(taps) < 64
+    bank = pl.buckets(prep)
+    ops = live = written = 0
+    for b in bank:
+        n, start = b.i32[:, 0].cpu().numpy(), b.starts.cpu().numpy()
+        seg = np.clip(np.minimum(n, prep.n_total - start), 0, None)
+        live += int(seg.sum())
+        written += b.f32.shape[0] * b.L
+        if firs:
+            ops += int(seg.sum()) * bank_ops(
+                b.is_psg, b.alg, b.vib, taps[2:] if b.is_psg else taps[:2])
+
+    def run(fused: bool):
+        return [synth.bucket_contrib(b, prep.n_total, fused) for b in bank]
+
+    reset_counts()
+    got = run(True)
+    bank_launches = {k: v for k, v in read_counts().items() if v}
+    for b, g, w in zip(bank, got, run(False)):
+        if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+            raise AssertionError(f"fused bank differs from the eager bank "
+                                 f"at {label}, bucket L {b.L}")
+    fused_ms = kernel_ms(lambda: run(True), TIMED_KERNEL_RUNS, 10)
+    eager_ms = cuda_ms(lambda: run(False), TIMED_KERNEL_RUNS)
+    row = {"sr": sr, "seconds": seconds, "buckets": len(bank),
+           "lowpass_taps": taps, "live_note_samples": live,
+           "written_samples": written, "fused_ms": fused_ms,
+           "eager_ms": eager_ms, "bank_launches": bank_launches}
+    if firs:
+        rows_bytes = sum(b.f32.numel() * 4 + b.i32.numel() * 4
+                         for b in bank)
+        t_bytes = (4 * written + rows_bytes) / HBM_BYTES_S * 1e3
+        t_ops = ops / F32_OP_S * 1e3
+        row.update(f32_ops=ops, bound_ms=max(t_bytes, t_ops),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   share_of_bound=max(t_bytes, t_ops) / fused_ms)
+
+    def device_render():
+        return synth.render_prepared(prep, device_out=True, pcm16=True)
+
+    reset_counts()
+    device_render()
+    row["render_launches"] = {k: v for k, v in read_counts().items() if v}
+    row["profile"] = prof = profile_renders(device_render, PROFILED_RENDERS)
+    # the overlap-add's device time a render after each bank: the same
+    # windows, so a difference is the L2 the bank leaves it
+    with mock.patch.object(sy, "bank_fused", lambda device: False):
+        oa_eager = kernel_ms_in(device_render, PROFILED_RENDERS,
+                                "overlap_add_kernel")
+    row["oa_ms_per_render"] = {
+        "fused": kernel_ms_in(device_render, PROFILED_RENDERS,
+                              "overlap_add_kernel"),
+        "eager": oa_eager}
+    bound = (f" ({row['share_of_bound']:.1%} of its {row['bound_ms']:.4f} "
+             f"ms bound by {row['bound_by']})" if firs else
+             " (a lowpass of 64 taps: the scan's passes)")
+    print(f"voice bank {label}: {len(bank)} buckets, taps {taps}, {live} "
+          f"live note-samples, fused bit-equal to eager; fused "
+          f"{fused_ms:.4f} ms warm{bound}; eager {eager_ms:.3f} ms; bank "
+          f"launches {bank_launches}; render launches "
+          f"{row['render_launches']}; profile "
+          f"{prof.get('events_per_render')} events, busy "
+          f"{prof.get('busy_ms_per_render')} ms a render; overlap-add "
+          f"kernel ms a render after the fused bank "
+          f"{row['oa_ms_per_render']['fused']}, after the eager "
+          f"{row['oa_ms_per_render']['eager']} {card}", flush=True)
+    return row
+
+
+BANK_WRAPPERS = ("voice_bank_fm", "voice_bank_psg", "voice_bank_fir",
+                 "voice_bank_scan")
+
+
+def voice_bank_path(dev, card: str) -> dict:
+    """Pattern Lab's voice bank (``voice_bank_case``) at the benchmark's
+    regen-20s and regen-120s shapes and at 230 kHz, where the first
+    lowpass runs as the scan; returns the kernels line's ``voice_bank``
+    row, its figures those of regen-20s."""
+    t_phase = time.perf_counter()
+    cases = {"regen_20s": voice_bank_case(dev, card, "20 s", 20.0),
+             "regen_120s": voice_bank_case(dev, card, "120 s", 120.0),
+             "scan_230k_4s": voice_bank_case(dev, card, "230 kHz 4 s", 4.0,
+                                             230000)}
+    c = cases["regen_20s"]
+    launches = sum(sum(v.get(k, 0) for k in BANK_WRAPPERS)
+                   for case in cases.values()
+                   for v in (case["bank_launches"], case["render_launches"]))
+    print(f"voice bank: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"name": "voice_bank", "route": "cuda",
+            "source": "audio_suite_torch/kernels/voice_bank.cu",
+            "replaces": "none: the JAX bank is a vmapped fm_note / psg_note "
+                        "that XLA fuses (audio_suite_tpu/ops/synth.py)",
+            "launches": launches,
+            "launches_per_render": sum(
+                c["render_launches"].get(k, 0) for k in BANK_WRAPPERS),
+            "ms": c["fused_ms"], "plain_ms": c["eager_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+            "launches_by_path": {"bank": launches}, "cases": cases}
+
+
 def patternlab_path(dev, card: str) -> dict:
     """Phase 5: the Pattern Lab config-4 path; returns the overlap-add's
     figures at config 4's shapes."""
@@ -1083,7 +1252,11 @@ def patternlab_path(dev, card: str) -> dict:
         print("profile: the profiler saw no device event; launches and "
               "busy time not measured", flush=True)
 
+    if not all(launches[k] for k in BANK_WRAPPERS[:2]):
+        raise AssertionError(f"config 4's render launched no voice bank: "
+                             f"{launches}")
     return {"launches": launches["overlap_add"],
+            "bank_launches": sum(launches[k] for k in BANK_WRAPPERS),
             "launches_per_render": launches["overlap_add"],
             "shape": [E, Lw, N], "max_abs_err": oa_err, "ms": oa_ms,
             "ms_l2_flushed": cold_ms, "plain_ms": plain_ms,
@@ -3834,6 +4007,10 @@ def main() -> int:
         print(json.dumps({"scan_ab": scan_ab(dev, card, sys.argv[2])}))
         print(name_limit)
         return 0
+    if sys.argv[1:2] == ["--bank"]:
+        print(json.dumps({"kernels": [voice_bank_path(dev, card)]}))
+        print(name_limit)
+        return 0
     if sys.argv[1:2] == ["--tape-scan-ab"]:
         print(json.dumps({"tape_scan_ab": tape_scan_ab(dev, card,
                                                        sys.argv[2])}))
@@ -3847,6 +4024,9 @@ def main() -> int:
     oa_row = microsound_path(dev, card)
     lr_row = tape_path(dev, card)
     pl_oa = patternlab_path(dev, card)
+    vb_row = voice_bank_path(dev, card)
+    vb_row["launches_by_path"]["config4"] = pl_oa["bank_launches"]
+    vb_row["launches"] += pl_oa["bank_launches"]
     sr_row = scrub_path(dev, card)
     grid = grid_path(dev, card)
     fire_path(dev, card, grid["run_wall_ms"])
@@ -3882,13 +4062,21 @@ def main() -> int:
                       (ss_row, "stick_slip_noise_scan")):
         row["launches_by_path"]["cli"] = cli[name]
         row["launches"] += cli[name]
+    # the voice bank's launches: phase 5, the CLI and the harness
+    vb_row["launches_by_path"]["cli"] = sum(cli[k] for k in BANK_WRAPPERS)
     # ---- 13. the harness: its launches join their rows
     bench_counts = phase13(dev, card, name_limit)
     for row, name in ((oa_row, "overlap_add"), (lr_row, "lerp_read"),
                       (sr_row, "scrub_read")):
         row["launches_by_path"]["bench"] = bench_counts[name]
         row["launches"] += bench_counts[name]
-    rows = [oa_row, lr_row, sr_row] + scan_rows_ + [ts_row]
+    vb_row["launches_by_path"]["bench"] = sum(bench_counts[k]
+                                              for k in BANK_WRAPPERS)
+    for path in ("cli", "bench"):
+        if not vb_row["launches_by_path"][path]:
+            raise AssertionError(f"the {path} path launched no voice bank")
+        vb_row["launches"] += vb_row["launches_by_path"][path]
+    rows = [oa_row, lr_row, sr_row] + scan_rows_ + [ts_row, vb_row]
 
     print(json.dumps({"kernels": rows}))
     print(name_limit)

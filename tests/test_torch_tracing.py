@@ -364,7 +364,7 @@ def _pl_trace():
         recs.append(_rec("patternlab.upload", t + 6_600, t + 7_990,
                          rid=next(ids), syncs=2))
         bank = _rec("patternlab.bank", t + 8_010, t + 50_000, rid=next(ids),
-                    stream_ms=40.0 + k)
+                    stream_ms=40.0 + k, fused=3 - k % 2, eager=k % 2)
         recs.append(bank)
         recs.append(_rec("patternlab.fm_bank", t + 9_000, t + 20_000,
                          rid=next(ids), parent=bank.id, request=bank.id,
@@ -479,6 +479,7 @@ EXPECTED = [
     ("syncs_per_render", "pl", 3),
     ("kernel_load_ms", "ms", 5.0),
     ("kernel_load_ms", "pl", 0.0),
+    ("bank_fused_share.patternlab", "pl", 8 / 9),   # 3 + 2 + 3 of 3 buckets x 3
 ]
 
 
@@ -494,6 +495,26 @@ def test_each_new_metric_reads_the_tracer(reader, monkeypatch, name, trace,
     monkeypatch.setattr(reader, "records", lambda: [])
     assert mod.read(run) is None
     assert mod.read(harness.RunData("cpu", 0.0, None)) is None
+
+
+def test_the_fused_share_is_none_where_the_bank_counts_nothing(reader,
+                                                             monkeypatch):
+    """A program whose bank span has no ``fused`` / ``eager`` counts (one
+    from before the fused bank) gives no share, nor does an empty bank."""
+    mod = spec.load_module("metrics", "bank_fused_share.patternlab")
+    recs, sl = _pl_trace()
+    for r in recs:
+        r.attrs = {}
+    run = harness.RunData(device_name="cpu", setup_s=0.0, window=None,
+                          slice=sl)
+    monkeypatch.setattr(reader, "records", lambda: recs)
+    assert mod.read(run) is None
+    recs[0].attrs = {"fused": 0, "eager": 0}
+    recs[0].name = "patternlab.bank"
+    assert mod.read(run) is None
+    recs[1].attrs = {"fused": 0, "eager": 4}
+    recs[1].name = "patternlab.bank"
+    assert mod.read(run) == 0.0
 
 
 def test_every_new_metric_is_in_benchmark_json():
