@@ -8,6 +8,10 @@ halves of ``render`` (``build_program``, then the space kernels and
 ``render_program``) inside the benchmark's spans.  The IR is made from
 the run's seed as bench config 3 makes its own: an 8 192-tap decaying
 Gaussian noise.
+
+``FAULTS``: the check's tests break the overlap-add (its buffer handed
+back; half the grains) and alter a sample of ``fx_body``'s PCM.
+``PROGRAM_SPANS``: ``render``'s spans (``models/microsound.py``).
 """
 from __future__ import annotations
 
@@ -15,7 +19,22 @@ from types import SimpleNamespace
 
 import numpy as np
 
+from benchmark import faults
 from benchmark.generator import seed_words
+
+FAULTS = {"state_unchanged": faults.overlap_add_unchanged,
+          "half_batch": faults.overlap_add_half,
+          "answer_altered": faults.sample_altered(
+              "audio_suite_torch.models.microsound", "fx_body")}
+PROGRAM_SPANS = {
+    "root": "microsound.render",
+    "last": "microsound.fx",
+    "wraps": {"host_build": ["microsound.build"],
+              "space_kernels": ["microsound.space_kernels"],
+              "dispatch": ["microsound.upload", "microsound.chain",
+                           "microsound.fx"]},
+    "upload": "microsound.upload",
+}
 
 
 def setup(config: dict, seed: int, device: str):

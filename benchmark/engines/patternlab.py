@@ -9,12 +9,31 @@ render memo, as a user's Render after a change does.  The traced run does
 what ``render`` does on that miss, in the benchmark's spans: the host
 pre-pass (generators, time ops, ``MegaDriveInspiredSynth.prepare``), then
 ``render_prepared(..., device_out=True, pcm16=True)`` and the pull.
+
+``FAULTS``: the check's tests break the overlap-add (its buffer handed
+back; half the notes) and alter a sample of ``_render_dispatch``'s PCM.
+``PROGRAM_SPANS``: ``render``'s spans (``models/patternlab.py``).
 """
 from __future__ import annotations
 
 from types import SimpleNamespace
 
 import numpy as np
+
+from benchmark import faults
+
+FAULTS = {"state_unchanged": faults.overlap_add_unchanged,
+          "half_batch": faults.overlap_add_half,
+          "answer_altered": faults.sample_altered(
+              "audio_suite_torch.models.patternlab", "_render_dispatch")}
+PROGRAM_SPANS = {
+    "root": "patternlab.render",
+    "last": "patternlab.master",
+    "wraps": {"host_prepare": ["patternlab.generate", "patternlab.time_ops",
+                               "patternlab.pack", "patternlab.upload"],
+              "dispatch": ["patternlab.bank", "patternlab.master"]},
+    "upload": "patternlab.upload",
+}
 
 
 def setup(config: dict, seed: int, device: str):

@@ -13,37 +13,60 @@ gives no records, and every reader here returns None.
   synchronizations counted inside the program's spans;
 - ``origin``: where the tracer's clock (Unix-epoch ns, the profiler's)
   puts the profiled slice's zero, from the benchmark's spans that wrap
-  program spans (``WRAPS``);
+  program spans (``wiring().wraps``);
 - ``label_gaps``, ``idle_ms``: the slice's idle gaps, each labelled by the
   innermost program span open at its middle, and the idle a render under
   one span.
+
+Which spans are roots, close a render, sit inside a benchmark span or
+upload a program, each engine declares in ``engines/<engine>.py:
+PROGRAM_SPANS``; ``wiring`` merges the declarations of every engine, so
+an engine's file brings its own.
 """
 from __future__ import annotations
 
 import statistics
 from collections import defaultdict
+from typing import NamedTuple
 
 from audio_suite_torch.utils import profiling as _prof
+from benchmark import spec
 
 TRACER = all(hasattr(_prof, f) for f in ("enable", "records", "span"))
 if TRACER:
     _prof.enable()
 
-# each benchmark span (engines/*.py:render_traced) and the program spans
-# that run inside it
-WRAPS = {
-    "host_build": ("microsound.build",),
-    "space_kernels": ("microsound.space_kernels",),
-    "dispatch": ("microsound.upload", "microsound.chain", "microsound.fx",
-                 "patternlab.bank", "patternlab.master"),
-    "host_prepare": ("patternlab.generate", "patternlab.time_ops",
-                     "patternlab.pack", "patternlab.upload"),
-}
-ROOTS = ("microsound.render", "patternlab.render")
-# a render of the traced path, which calls the entries' halves and so
-# opens no root, ends with its engine's last device stage
-LAST = ("microsound.fx", "patternlab.master")
 MAX_WIDTH_NS = 100_000      # the widest origin interval taken: 0.1 ms
+
+
+class Wiring(NamedTuple):
+    """The program spans the readers give a role, over every engine."""
+    roots: tuple      # the entries' root spans
+    last: tuple       # each traced path's last device stage
+    wraps: dict       # benchmark span -> the program spans inside it
+    uploads: tuple    # the spans that copy a host program to the card
+
+
+def wiring() -> Wiring:
+    """Every engine's ``PROGRAM_SPANS`` (``root``, ``last``, ``wraps``,
+    ``upload``, each optional), merged; an engine whose program has no
+    spans declares none.  A program span that two benchmark spans claim
+    is refused."""
+    roots, last, uploads, wraps, home = [], [], [], {}, {}
+    for name in spec.names("engines"):
+        decl = getattr(spec.load_module("engines", name), "PROGRAM_SPANS",
+                       {})
+        for key, acc in (("root", roots), ("last", last),
+                         ("upload", uploads)):
+            if key in decl:
+                acc.append(decl[key])
+        for bench, progs in decl.get("wraps", {}).items():
+            for p in progs:
+                if home.setdefault(p, bench) != bench:
+                    raise ValueError(f"{name}: {p!r} is inside both "
+                                     f"{home[p]!r} and {bench!r}")
+            wraps[bench] = wraps.get(bench, ()) + tuple(progs)
+    return Wiring(tuple(roots), tuple(last), wraps, tuple(uploads))
 
 
 def records() -> list:
@@ -78,15 +101,18 @@ def stream_ms(name: str, recs=None):
 
 def renders(recs) -> list[list]:
     """The records grouped by render: a root with the spans under it, or
-    the top-level spans up to and including a ``LAST`` stage."""
+    the top-level spans up to and including a traced path's last stage
+    (``wiring().last``)."""
     by_request = defaultdict(list)
     for r in recs:
         by_request[r.request].append(r)
+    w = wiring()
+    closing = set(w.roots + w.last)
     out, cur = [], []
     for top in sorted((r for r in recs if r.parent is None),
                       key=lambda r: r.start_ns):
         cur.extend(by_request[top.request])
-        if top.name in ROOTS or top.name in LAST:
+        if top.name in closing:
             out.append(cur)
             cur = []
     return out
@@ -106,8 +132,9 @@ def origin(sl, recs):
     the interval is wider than ``MAX_WIDTH_NS``."""
     if sl is None:
         return None
-    home_of = {p: b for b, ps in WRAPS.items() for p in ps}
-    bench = [(n, a, b) for n, a, b in sl.annotations if n in WRAPS]
+    wraps = wiring().wraps
+    home_of = {p: b for b, ps in wraps.items() for p in ps}
+    bench = [(n, a, b) for n, a, b in sl.annotations if n in wraps]
     prog = sorted((r for r in recs if r.name in home_of),
                   key=lambda r: r.end_ns)
     if not bench or not prog:

@@ -8,7 +8,9 @@ an edit:
 - ``configs/<config>.json``: the parameters, and the ``engine`` that
   issues them;
 - ``traffic/<traffic>.json``: the mix, read by ``generator.Traffic``;
-- ``engines/<engine>.py``: how one request goes through the program;
+- ``engines/<engine>.py``: how one request goes through the program,
+  the faults the check's tests plant in it (``FAULTS``) and the program's
+  spans it runs (``PROGRAM_SPANS``);
 - ``metrics/<metric>.py``: one metric's reader, ``read(run)``.
 """
 from __future__ import annotations
@@ -59,6 +61,11 @@ def load_module(kind: str, name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def names(kind: str) -> list[str]:
+    """The names of every module of a kind (``engines/*.py``), sorted."""
+    return sorted(p.stem for p in (HERE / kind).glob("*.py"))
 
 
 def metrics_for(bench: dict, cell_name: str, trace: bool) -> list[dict]:

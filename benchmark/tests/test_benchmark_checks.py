@@ -1,8 +1,8 @@
 """The check that decides ``correct``, on the CPU at the tests' small
 sizes: the plain references agree with the port, the control (the
 reference at bfloat16) fails the limit, and a run whose timed path is
-broken underneath comes out not correct, once for each fault a render
-cell can have."""
+broken underneath comes out not correct, once for each fault its
+engine names (``engines/<engine>.py:FAULTS``, one of each kind)."""
 import ast
 import sys
 import time
@@ -15,7 +15,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
-from benchmark import control, harness, spec  # noqa: E402
+from benchmark import control, faults, harness, spec  # noqa: E402
 from benchmark.reference import microsound as ref_ms  # noqa: E402
 from benchmark.reference import numerics  # noqa: E402
 from benchmark.reference import patternlab as ref_pl  # noqa: E402
@@ -102,44 +102,24 @@ def test_bf16_rounds_to_eight_bits():
         == [32767, -32768, 0]
 
 
-# --- faults planted in the timed path underneath a run
+# --- faults planted in the timed path underneath a run: each engine names
+# its own (engines/<engine>.py:FAULTS)
 
-def _oa_module():
-    from audio_suite_torch.ops import overlap_add
-    return overlap_add
-
-
-def _state_unchanged(monkeypatch):
-    """The overlap-add step hands its buffer back unchanged."""
-    oa = _oa_module()
-    monkeypatch.setattr(oa, "overlap_add", lambda out, vals, starts: out)
+def _engine(cell_name):
+    config = spec.load_json("configs", spec.cell(BENCH, cell_name)["config"])
+    return spec.load_module("engines", config["engine"])
 
 
-def _half_batch(monkeypatch):
-    """Half the windows (grains or notes) left out of the overlap-add."""
-    oa = _oa_module()
-    orig = oa.overlap_add
-    monkeypatch.setattr(oa, "overlap_add", lambda out, vals, starts: orig(
-        out, vals[: vals.shape[0] // 2], starts[: starts.shape[0] // 2]))
+ENGINES = sorted({spec.load_json("configs", c["name"])["engine"]
+                  for c in BENCH["configs"]})
+CASES = [pytest.param(c, f, id=f"{c}-{f}") for c in CELLS
+         for f in sorted(_engine(c).FAULTS)]
 
 
-def _answer_altered(monkeypatch):
-    """One PCM sample altered where the render produces it."""
-    from audio_suite_torch.models import microsound as ms
-    from audio_suite_torch.models import patternlab as pl
-
-    def alter(fn):
-        def wrapped(*a, **k):
-            y = fn(*a, **k).clone()
-            y.view(-1)[y.numel() // 3] += 1000
-            return y
-        return wrapped
-    monkeypatch.setattr(ms, "fx_body", alter(ms.fx_body))
-    monkeypatch.setattr(pl, "_render_dispatch", alter(pl._render_dispatch))
-
-
-FAULTS = {"state_unchanged": _state_unchanged, "half_batch": _half_batch,
-          "answer_altered": _answer_altered}
+@pytest.mark.parametrize("engine", ENGINES)
+def test_every_engine_in_use_names_each_kind_of_fault(engine):
+    assert sorted(spec.load_module("engines", engine).FAULTS) \
+        == sorted(faults.KINDS)
 
 
 def _run(cell_name):
@@ -160,10 +140,9 @@ def test_a_sound_run_is_correct(cell_name):
         m["name"] for m in spec.metrics_for(BENCH, cell_name, False)}
 
 
-@pytest.mark.parametrize("fault", sorted(FAULTS))
-@pytest.mark.parametrize("cell_name", CELLS)
+@pytest.mark.parametrize("cell_name,fault", CASES)
 def test_a_broken_timed_path_is_not_correct(cell_name, fault, monkeypatch):
-    FAULTS[fault](monkeypatch)
+    _engine(cell_name).FAULTS[fault](monkeypatch)
     r = _run(cell_name)
     assert r["correct"] is False, (fault, r["checks"])
     assert r["checks"]["pcm_max_lsb"]["value"] > \
