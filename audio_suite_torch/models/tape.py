@@ -13,6 +13,11 @@
   gain, clip, PCM16), ``"segment"`` (the C++ per-sample trajectory and
   one linear read) and ``"scan"`` (the per-sample recurrence on the
   hand-written ``kernels/tape_scan.cu``);
+- the tracer's spans (``utils/profiling.py``, off by default) on the
+  device engine's render: ``tape.render`` (the root; ``memo_hit``,
+  ``frames``), ``tape.build`` (``hit``), ``tape.tables`` (``hit`` and the
+  table sizes ``visits``, ``runs``, ``triggers``), ``tape.upload``, the
+  device stages ``tape.positions`` and ``tape.read``, and ``tape.pull``;
 - the performance renderer: a ``TapeTrace`` of timed edits, split at its
   event times into segment programs with the position, speed and splice
   state carried across them (``build_trace_programs``), each segment
@@ -36,6 +41,7 @@ from ..ops import detmath, fixq, varispeed
 from ..ops.varispeed import TapeConsts
 from ..utils import io as audio_io
 from ..utils import native_rt
+from ..utils.profiling import span
 
 
 @dataclass
@@ -291,23 +297,43 @@ def build_tape_program_cached(audio, params: TapeParams, num_frames: int, *,
     an unchanged tape and parameters skip the host build and, through
     ``prog["_tables"]``, the C++ table walk.  The audio is keyed by object
     identity: reuse the same array or tensor across renders."""
-    key = (id(audio), str(torch.device(device)), int(num_frames),
-           json.dumps(dataclasses.asdict(params), sort_keys=True,
-                      default=str))
-    ent = _TAPE_PROG_CACHE.pop(key, None)
-    if ent is not None and ent["audio"] is audio:
+    return _cached_program(audio, params, num_frames, device)[0]
+
+
+def _cached_program(audio, params: TapeParams, num_frames: int, device):
+    """``build_tape_program_cached``'s program and whether the memo served
+    it, in the ``tape.build`` span."""
+    with span("tape.build") as sp:
+        key = (id(audio), str(torch.device(device)), int(num_frames),
+               json.dumps(dataclasses.asdict(params), sort_keys=True,
+                          default=str))
+        ent = _TAPE_PROG_CACHE.pop(key, None)
+        hit = ent is not None and ent["audio"] is audio
+        sp.set(hit=hit)
+        if not hit:
+            ent = {"audio": audio, "prog": build_tape_program(
+                audio, params, num_frames, device=device)}
         _TAPE_PROG_CACHE[key] = ent
-        return ent["prog"]
-    prog = build_tape_program(audio, params, num_frames, device=device)
-    _TAPE_PROG_CACHE[key] = {"audio": audio, "prog": prog}
-    while len(_TAPE_PROG_CACHE) > 8:
-        _TAPE_PROG_CACHE.popitem(last=False)
-    return prog
+        while len(_TAPE_PROG_CACHE) > 8:
+            _TAPE_PROG_CACHE.popitem(last=False)
+        return ent["prog"], hit
 
 
 def program_tables(prog: dict) -> dict:
     """The program's control tables (C++ walk on first use, then the
-    memo ``prog["_tables"]``)."""
+    memo ``prog["_tables"]``), in the ``tape.tables`` span."""
+    with span("tape.tables") as sp:
+        hit = prog.get("_tables") is not None
+        tables = _tables(prog)
+        sp.set(hit=hit, visits=len(tables["visit_start"]),
+               runs=len(tables["run_start"]),
+               triggers=len(tables["triggers"]))
+        return tables
+
+
+def _tables(prog: dict) -> dict:
+    """``program_tables`` outside its span (``device_tables`` walks a
+    program it finds without tables inside its own span)."""
     tables = prog.get("_tables")
     if tables is None:
         tables = native_rt.tape_tables(
@@ -321,26 +347,28 @@ def program_tables(prog: dict) -> dict:
 
 def device_tables(prog: dict) -> dict:
     """The tables ``ops/varispeed.tape_positions`` reads, on the tape's
-    device (a few KB, copied once per program and memoized)."""
-    tab = prog.get("_device_tables")
-    if tab is None:
-        tables = program_tables(prog)
-        dev = prog["audio"].device
+    device (a few KB, copied once per program and memoized), in the
+    ``tape.upload`` span."""
+    with span("tape.upload"):
+        tab = prog.get("_device_tables")
+        if tab is None:
+            tables = _tables(prog)
+            dev = prog["audio"].device
 
-        def i32(a):
-            return torch.as_tensor(np.asarray(a, np.int32), device=dev)
-        ints, flts, ph0 = prog["mod_consts"]
-        tab = {k: i32(tables[k]) for k in (
-            "visit_start", "visit_bw", "visit_bf", "visit_sec",
-            "run_start", "run_s0", "run_m", "triggers")}
-        tab.update(
-            mod_ints=ints, mod_flts=flts, phase0=ph0,
-            starts=i32(prog["starts"]), ends=i32(prog["ends"]),
-            reverse=torch.as_tensor(prog["reverse"], device=dev),
-            boundaries=[int(b) for b in prog["boundaries"]],
-            splice_env=torch.as_tensor(prog["splice_env"], device=dev))
-        prog["_device_tables"] = tab
-    return tab
+            def i32(a):
+                return torch.as_tensor(np.asarray(a, np.int32), device=dev)
+            ints, flts, ph0 = prog["mod_consts"]
+            tab = {k: i32(tables[k]) for k in (
+                "visit_start", "visit_bw", "visit_bf", "visit_sec",
+                "run_start", "run_s0", "run_m", "triggers")}
+            tab.update(
+                mod_ints=ints, mod_flts=flts, phase0=ph0,
+                starts=i32(prog["starts"]), ends=i32(prog["ends"]),
+                reverse=torch.as_tensor(prog["reverse"], device=dev),
+                boundaries=[int(b) for b in prog["boundaries"]],
+                splice_env=torch.as_tensor(prog["splice_env"], device=dev))
+            prog["_device_tables"] = tab
+        return tab
 
 
 def tape_table_render(prog: dict, out_i16: bool = False,
@@ -351,15 +379,16 @@ def tape_table_render(prog: dict, out_i16: bool = False,
     or int16 PCM with ``out_i16``, [T, 2] with ``stereo`` (both channels
     the same samples); a tensor on the tape's device with ``device_out``,
     else a host NumPy array."""
+    final = program_tables(prog)["final"]
     tab = device_tables(prog)
     out = varispeed.tape_device_render(prog["audio"], tab, prog["consts"],
                                        prog["num_frames"], out_i16, interp)
     if stereo:
         out = torch.stack([out, out], dim=-1)
-    final = program_tables(prog)["final"]
     if device_out:
         return out, final
-    return out.cpu().numpy(), final
+    with span("tape.pull"):
+        return out.cpu().numpy(), final
 
 
 ENGINES = ("device", "segment", "scan")
@@ -367,29 +396,35 @@ ENGINES = ("device", "segment", "scan")
 
 def render_tape(audio, params: TapeParams,
                 num_frames: Optional[int] = None, *, device="cuda",
-                engine: str = "device",
-                interp: str = "linear") -> np.ndarray:
+                engine: str = "device", interp: str = "linear",
+                pcm16: bool = False) -> np.ndarray:
     """Offline render of ``num_frames`` output samples (default: one full
     duration-preserving pass over the tape) on ``device``; returns the mono
-    f32 render as a host NumPy array.
+    f32 render as a host NumPy array, or with ``pcm16`` (the device engine
+    only) the int16 PCM the card made from it (the app exports PCM_16,
+    Tape…py:342).
 
     ``engine="device"`` (default): the host control tables and the full
-    reconstruction on the device (``interp`` "linear" or "sinc").
-    ``"segment"``: the host's exact per-sample trajectory and one linear
-    read.  ``"scan"``: the sequential reference-structured recurrence
-    (``kernels/tape_scan.cu`` on the card), kept for cross-validation.
-    The three make the same discrete decisions (the same fixed-point
-    integers); the segment and scan engines read linearly."""
+    reconstruction on the device (``interp`` "linear" or "sinc"), in the
+    ``tape.render`` span.  ``"segment"``: the host's exact per-sample
+    trajectory and one linear read.  ``"scan"``: the sequential
+    reference-structured recurrence (``kernels/tape_scan.cu`` on the card),
+    kept for cross-validation.  The three make the same discrete decisions
+    (the same fixed-point integers); the segment and scan engines read
+    linearly."""
     if engine not in ENGINES:
         raise ValueError(f"engine {engine!r}: one of {ENGINES}")
+    if pcm16 and engine != "device":
+        raise ValueError("pcm16 is made on the card by the device engine")
     n = int(audio.shape[0]) if hasattr(audio, "shape") else len(audio)
     if num_frames is None:
         num_frames = section_render_length(params, n)
     if engine == "device":
-        prog = build_tape_program_cached(audio, params, num_frames,
-                                         device=device)
-        out, _ = tape_table_render(prog, interp=interp)
-        return out
+        with span("tape.render", frames=int(num_frames)) as sp:
+            prog, hit = _cached_program(audio, params, num_frames, device)
+            sp.set(memo_hit=hit)
+            out, _ = tape_table_render(prog, out_i16=pcm16, interp=interp)
+            return out
     # the segment and scan engines read the host wow/flutter curve (the
     # table engine makes its own on the device)
     prog = build_tape_program(audio, params, num_frames, device=device)

@@ -16,7 +16,8 @@ is integer math and bit-identical to the JAX package and its NumPy oracle.
   the read index, the anti-click x splice gain, and with ``with_pieces``
   the trace renderer's splice-envelope pieces), then the linear read
   (``ops/lerp_read.py``, the CUDA kernel on the card) or the sinc read
-  (``fixq.gather_sinc_clip``, plain PyTorch), gain, clip and PCM16.
+  (``fixq.gather_sinc_clip``, plain PyTorch), gain, clip and PCM16: two
+  device stages of the tracer, ``tape.positions`` and ``tape.read``.
 - The segment engine, ``tape_segment_render``: the C++ per-sample
   trajectory, then ``tape_gather_render`` (the same linear read, the
   combined gain, the clip).
@@ -41,6 +42,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..utils.profiling import span
 from . import detmath
 from .fixq import (POS_FRAC_BITS, POS_INV_F, POS_ONE, gather_sinc_clip,
                    quantize_f32, round_sig12, segmented_pos_cumsum)
@@ -686,20 +688,22 @@ def tape_device_render(audio: torch.Tensor, tab: dict, consts: TapeConsts,
         raise ValueError("with_pieces needs splice_off and splice_len")
     if not with_pieces:
         splice_off = splice_len = None
-    idx0, fr, gain = tape_positions(tab, consts, audio.shape[0], T,
-                                    splice_off, splice_len)
-    if interp == "sinc":
-        # the sinc read takes its fraction in 2**-22 units: the JAX
-        # package's quantization round trip (varispeed.py:1019-1031)
-        fq = torch.round(fr * float(POS_ONE)).to(torch.int32)
-        s = gather_sinc_clip(audio, idx0, fq)
-    else:
-        s = lerp_read(audio, idx0, fr)
-    s = torch.clamp(s * gain, -1.0, 1.0)
-    if out_i16:
-        q = torch.clamp(torch.round(s * 32768.0), -32768.0, 32767.0)
-        return q.to(torch.int16)
-    return s
+    with span("tape.positions", audio.device):
+        idx0, fr, gain = tape_positions(tab, consts, audio.shape[0], T,
+                                        splice_off, splice_len)
+    with span("tape.read", audio.device):
+        if interp == "sinc":
+            # the sinc read takes its fraction in 2**-22 units: the JAX
+            # package's quantization round trip (varispeed.py:1019-1031)
+            fq = torch.round(fr * float(POS_ONE)).to(torch.int32)
+            s = gather_sinc_clip(audio, idx0, fq)
+        else:
+            s = lerp_read(audio, idx0, fr)
+        s = torch.clamp(s * gain, -1.0, 1.0)
+        if out_i16:
+            q = torch.clamp(torch.round(s * 32768.0), -32768.0, 32767.0)
+            return q.to(torch.int16)
+        return s
 
 
 # ----------------------------------------------------------------------------

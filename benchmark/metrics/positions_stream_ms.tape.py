@@ -1,0 +1,9 @@
+"""positions_stream_ms.tape (ms): the median time a render the card's
+stream took from the ``tape.positions`` span's first CUDA event to its
+last (the host's time where it is slower than the card, the device's
+where the card lags; not busy time)."""
+from benchmark import program_trace
+
+
+def read(run):
+    return program_trace.stream_ms("tape.positions")
