@@ -303,7 +303,7 @@ def _microsound_device_call(ms, p, ir, dev):
     chunks = [ms.program_to_device(c, dev) for c in ms._chunk_events(prog,
                                                                     ec)]
     cfg = ms.chain_cfg(p, prog)
-    er_k, ir_k, ir_on = ms._space_kernels(p, ir)
+    er_k, ir_k, ir_on = ms._space_kernels(p, ir, dev)
     fx = ms.fx_cfg(p, prog["out_n"], ir_on, False)
     kern = ms.program_to_device({"er": er_k, "ir": ir_k}, dev)
     return lambda: ms.render_device(cfg, fx, chunks, kern["er"],

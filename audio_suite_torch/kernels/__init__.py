@@ -133,6 +133,11 @@ _SIGNATURES = {
                              ctypes.c_longlong),
         "ts_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
+    "space_conv": {
+        "sc_launch": ([_P, _P, ctypes.c_int, _P, ctypes.c_int, _P,
+                       ctypes.c_int, _P], ctypes.c_int),
+        "sc_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
 }
 TAPE_SCAN_MAX_TABLE_WORDS = 12288   # tape_scan.cu's kMaxTableWords
 TAPE_SCAN_CHUNK = 1024  # tape_scan.cu's steps a chunk: a power of two in
@@ -652,3 +657,36 @@ def tape_scan(audio: torch.Tensor, mod_q: torch.Tensor, starts: torch.Tensor,
 
 
 tape_scan.launches = 0
+
+
+def space_conv(offs: torch.Tensor, gains: torch.Tensor, ir: torch.Tensor,
+               n_er: int) -> torch.Tensor:
+    """Launch ``space_conv.cu`` on the current stream and return the new
+    f32 [n_er + n_ir - 1] ER (x) IR: out[j] = the sum over the taps, in
+    their order, of f64(gains[t]) * ir[j - offs[t]] where 0 <= j - offs[t]
+    < n_ir, rounded once to f32.  ``offs`` int32 [T] (ascending, in [0,
+    n_er)) and ``gains`` f32 [T] are the ER kernel's nonzero taps, ``ir``
+    f64 [n_ir]; all contiguous on one CUDA device; n_er >= 1, n_ir >= 1."""
+    T = offs.shape[0] if offs.dim() == 1 else -1
+    n_ir = ir.shape[0] if ir.dim() == 1 else -1
+    _scan_check("space_conv", (ir, offs, gains),
+                (torch.float64, torch.int32, torch.float32),
+                ((n_ir,), (T,), (T,)))
+    n_out = n_er + n_ir - 1
+    if n_er < 1 or n_ir < 1 or n_out >= 2 ** 31:
+        raise ValueError(f"space_conv kernel: ER {n_er} taps, IR {n_ir}")
+    out = torch.empty(n_out, dtype=torch.float32, device=ir.device)
+    lib = _lib("space_conv")
+    with torch.cuda.device(ir.device):
+        stream = torch.cuda.current_stream(ir.device).cuda_stream
+        rc = lib.sc_launch(offs.data_ptr(), gains.data_ptr(), T,
+                           ir.data_ptr(), n_ir, out.data_ptr(), n_out,
+                           stream)
+    if rc != 0:
+        raise RuntimeError("space_conv kernel launch failed: "
+                           + lib.sc_error_string(rc).decode())
+    space_conv.launches += 1
+    return out
+
+
+space_conv.launches = 0

@@ -40,6 +40,7 @@ from ..ops import envdet, fixq
 from ..plugins.host import load_py_module
 from ..utils import io as audio_io
 from ..utils import native_rt
+from ..utils.device import canonical_device
 
 DEFAULT_DIVISION_SNIPPET = "def divisions(total):\n    return [total/16.0]*16\n"
 
@@ -730,16 +731,6 @@ def _project_cache_key(project: GridProject) -> bytes:
     return h.digest()
 
 
-def _canonical_device(device) -> torch.device:
-    """``device`` with its index filled in, so that "cuda" and "cuda:0"
-    (the current card) are one device."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:
-        idx = torch.cuda.current_device() if torch.cuda.is_available() else 0
-        dev = torch.device("cuda", idx)
-    return dev
-
-
 def build_mix_program_cached(project: GridProject, device="cuda") -> dict:
     """``_build_mix_program`` memoized on project content and the render's
     device: {"n_total", "rows", "prep"}, where "prep" holds the prepared
@@ -747,7 +738,7 @@ def build_mix_program_cached(project: GridProject, device="cuda") -> dict:
     the key because the cells run on it (``context["device"]``): a
     program whose cells ran on one device never serves a render on
     another, so each device a project renders on pays one host build."""
-    key = (_project_cache_key(project), _canonical_device(device))
+    key = (_project_cache_key(project), canonical_device(device))
     entry = _PROGRAM_CACHE.pop(key, None)
     if entry is None:
         n_total, rows = _build_mix_program(project, device)

@@ -30,11 +30,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import kernels
 from ..events.schedulers import generate_event_times
 from ..ops import (detmath, envelopes, exact_dft, generators, overlap_add,
                    space, spectral)
 from ..utils.breakpoints import (eval_breakpoints, eval_breakpoints_vec,
                                 parse_breakpoints)
+from ..utils.device import canonical_device
 from ..utils.profiling import span
 
 GEN_MODES = (
@@ -1017,28 +1019,41 @@ def program_to_device(prog: dict, device) -> dict:
 _SPACE_KERNEL_CACHE: dict = {}
 
 
-def _space_kernels(p: MicrosoundParams, ir_audio):
-    """ER tap kernel, IR kernel and, by convolution associativity, their
-    combined form (microsound.py:1084) — memoized on the ER parameters and
-    the IR's digest, since the f64 host convolution is costly and
-    parameter sweeps re-render with one space setup."""
-    with span("microsound.space_kernels") as sp:
-        ir_on = bool(p.space_ir_on) and ir_audio is not None
-        irm = None
-        if ir_on:
-            irm = np.asarray(ir_audio, np.float64)
-            if irm.ndim > 1:
-                irm = irm.mean(axis=1)
-            irm = irm[: int(p.space_ir_max_samps)]
-            irm = irm[: min(irm.size, 8192)]       # convolve_ir_short cap
-            ir_on = irm.size >= 8
+def _space_ir(p: MicrosoundParams, ir_audio) -> np.ndarray | None:
+    """The IR as the space FX convolve it: f64, channels averaged, cut to
+    ``space_ir_max_samps`` and 8 192 taps; None where the IR is off or
+    shorter than 8 taps."""
+    if not p.space_ir_on or ir_audio is None:
+        return None
+    irm = np.asarray(ir_audio, np.float64)
+    if irm.ndim > 1:
+        irm = irm.mean(axis=1)
+    irm = irm[: int(p.space_ir_max_samps)]
+    irm = irm[: min(irm.size, 8192)]       # convolve_ir_short cap
+    return irm if irm.size >= 8 else None
 
+
+def _space_kernels(p: MicrosoundParams, ir_audio, device="cuda"):
+    """ER tap kernel, IR kernel and, by convolution associativity, their
+    combined form (microsound.py:1084) — memoized on the ER parameters,
+    the IR's digest and the device, since parameter sweeps re-render with
+    one space setup.  On the CPU they are NumPy arrays and the combined
+    kernel is the f64 host np.convolve; on a CUDA device they are tensors
+    on it, and the combined kernel is one launch of
+    ``kernels/space_conv.cu`` over the ER kernel's nonzero taps and the
+    f64 IR, both sent in one copy (the same f64 sum, rounded once to
+    f32).  The convolution runs only where the ER cloud and the IR are
+    both on; the span's ``launched`` says whether the kernel ran."""
+    dev = canonical_device(device)
+    with span("microsound.space_kernels") as sp:
+        irm = _space_ir(p, ir_audio)
+        ir_on = irm is not None
         key = (bool(p.er_cloud_on), int(p.er_taps), float(p.er_max_ms),
                int(p.base_sr), int(p.seed),
                hashlib.blake2b(irm.tobytes(), digest_size=16).digest()
-               if ir_on else None)
+               if ir_on else None, dev)
         hit = _SPACE_KERNEL_CACHE.get(key)
-        sp.set(hit=hit is not None)
+        sp.set(hit=hit is not None, launched=False)
         if hit is not None:
             return hit
 
@@ -1047,15 +1062,25 @@ def _space_kernels(p: MicrosoundParams, ir_audio):
             er_kernel = space.er_tap_kernel(int(p.er_taps),
                                             float(p.er_max_ms),
                                             int(p.base_sr), int(p.seed))
-        ir_kernel = (irm.astype(np.float32) if ir_on
-                     else np.zeros(2, np.float32))
-        if p.er_cloud_on and ir_on:
-            er_kernel = np.convolve(er_kernel.astype(np.float64),
-                                    irm).astype(np.float32)
+        if dev.type != "cpu" and p.er_cloud_on and ir_on:
+            offs, gains, ir64 = space.space_conv_inputs(er_kernel, irm, dev)
+            out = (kernels.space_conv(offs, gains, ir64, er_kernel.size),
+                   ir64.float(), ir_on)
+            sp.set(launched=True)
+        else:
+            ir_kernel = (irm.astype(np.float32) if ir_on
+                         else np.zeros(2, np.float32))
+            if p.er_cloud_on and ir_on:
+                er_kernel = np.convolve(er_kernel.astype(np.float64),
+                                        irm).astype(np.float32)
+            out = (er_kernel, ir_kernel, ir_on)
+            if dev.type != "cpu":
+                out = (torch.from_numpy(er_kernel).to(dev),
+                       torch.from_numpy(ir_kernel).to(dev), ir_on)
         if len(_SPACE_KERNEL_CACHE) >= 8:
             _SPACE_KERNEL_CACHE.pop(next(iter(_SPACE_KERNEL_CACHE)))
-        _SPACE_KERNEL_CACHE[key] = (er_kernel, ir_kernel, ir_on)
-        return er_kernel, ir_kernel, ir_on
+        _SPACE_KERNEL_CACHE[key] = out
+        return out
 
 
 def fx_cfg(params: MicrosoundParams, out_n: int, ir_on: bool,
@@ -1118,7 +1143,8 @@ def render(params: MicrosoundParams, ir_audio=None, img_gray=None, *,
     end, as in the JAX package."""
     with span("microsound.render"):
         prog = build_program(params, ir_audio=ir_audio, img_gray=img_gray)
-        return render_program(params, prog, _space_kernels(params, ir_audio),
+        return render_program(params, prog,
+                              _space_kernels(params, ir_audio, device),
                               device=device, event_chunk=event_chunk,
                               pcm16=pcm16, want_micro_last=want_micro_last,
                               progress=progress)

@@ -1,7 +1,9 @@
 """Space FX — port of audio_suite_tpu/ops/space.py: partitioned FFT
 convolution, the early-reflection tap kernel and the Jacobi-Anger stereo
 diffusion (host NumPy parts are ported too, since the JAX module imports
-jax), soft clip and normalize.
+jax), soft clip and normalize; and the plain ER (x) IR from the ER
+kernel's nonzero taps, which ``kernels/space_conv.cu`` computes on a
+CUDA device.
 """
 from __future__ import annotations
 
@@ -51,18 +53,49 @@ def fft_convolve_causal(x: torch.Tensor, kernel: torch.Tensor,
 def er_tap_kernel(taps: int, max_ms: float, sr: int, seed: int) -> np.ndarray:
     """Host: the reflection cloud's tap kernel (space.py:61): delays
     U(0.3, max_ms) ms and gains U(-1, 1) * e^{-42 d} from rng(seed + 202),
-    and an identity tap at 0 for the dry copy."""
+    and an identity tap at 0 for the dry copy.  The taps accumulate in
+    draw order, as the reference's loop adds them (``np.add.at`` is
+    unbuffered; ``np.rint`` rounds half to even, as ``round``)."""
     rng = np.random.default_rng(int(seed) + 202)
     delays = rng.uniform(0.3, max_ms, size=int(max(1, taps))) / 1000.0
     gains = rng.uniform(-1.0, 1.0, size=delays.size)
     gains *= np.exp(-delays * 42.0)
     k = np.zeros(int(round(max_ms / 1000.0 * sr)) + 2, np.float64)
     k[0] = 1.0
-    for d, g in zip(delays, gains):
-        off = int(round(d * sr))
-        if 0 < off < len(k):
-            k[off] += g
+    offs = np.rint(delays * sr).astype(np.int64)
+    keep = (offs > 0) & (offs < k.size)
+    np.add.at(k, offs[keep], gains[keep])
     return k.astype(np.float32)
+
+
+def space_conv_inputs(er_kernel: np.ndarray, ir: np.ndarray, device
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """What ``kernels.space_conv`` takes, on ``device`` in one
+    host-to-device copy: the f32 ER kernel's nonzero taps as int32 offsets
+    (ascending) and f32 gains, and the IR in f64."""
+    offs = np.flatnonzero(er_kernel).astype(np.int32)
+    n = 2 * ir.size
+    packed = np.concatenate([np.ascontiguousarray(ir, np.float64)
+                             .view(np.int32), offs,
+                             er_kernel[offs].view(np.int32)])
+    buf = torch.from_numpy(packed).to(device)
+    return (buf[n:n + offs.size], buf[n + offs.size:].view(torch.float32),
+            buf[:n].view(torch.float64))
+
+
+def er_ir_convolve_plain(offs: torch.Tensor, gains: torch.Tensor,
+                         ir: torch.Tensor, n_er: int) -> torch.Tensor:
+    """The plain PyTorch ER (x) IR, np.convolve(er, ir) in f64 rounded to
+    f32 from the ER kernel's nonzero taps (``space_conv_inputs``; ``n_er``
+    its length): f32 [n_er + n_ir - 1], for each tap in order the f64 IR
+    times the tap's gain added at its offset, the sum rounded once to
+    f32.  Each product and add rounds once, as in
+    ``kernels/space_conv.cu``, which is held against it."""
+    n_ir = ir.shape[0]
+    acc = torch.zeros(n_er + n_ir - 1, dtype=torch.float64, device=ir.device)
+    for o, g in zip(offs.tolist(), gains.tolist()):
+        acc[o:o + n_ir] += ir * g
+    return acc.to(torch.float32)
 
 
 def _bessel_j(m: int, phi: float) -> float:

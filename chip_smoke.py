@@ -5,6 +5,7 @@
     python3 chip_smoke.py --scan-ab path/to/grain_scan.cu
     python3 chip_smoke.py --tape-scan-ab path/to/tape_scan.cu
     python3 chip_smoke.py --bank
+    python3 chip_smoke.py --space
 
 The second form builds the kernels, then only holds another grain_scan.cu
 (e.g. an earlier commit's, from ``git archive`` into the git-ignored
@@ -18,6 +19,8 @@ The fourth runs only Pattern Lab's voice bank (``voice_bank_path``, which
 the first form runs after phase 5): the fused bank of
 ``kernels/voice_bank.cu`` against the eager bank at the benchmark's
 ``regen-20s`` and ``regen-120s`` shapes and at 230 kHz (the scan).
+The fifth runs only Microsound's ER (x) IR kernel (``space_conv_path``,
+which the first form runs after phase 3).
 
 Drives audio_suite_torch's ported paths at full size on the card, in
 phases; any failure raises and the exit code is non-zero.  The paths:
@@ -78,10 +81,18 @@ Phases:
 3. Microsound: the overlap-add kernel against its plain PyTorch version at
    the render's shapes (bit-equal), timed beside the plain version and the
    one-call yardstick ``index_add_``, with its bound; the render
-   through ``models.microsound.render`` with every kernel launch counted;
+   through ``models.microsound.render`` with every kernel launch counted,
+   its space kernels a memo miss that launches ``space_conv`` once;
    output checks; the float render bit-equal to one made with the plain
    overlap-add; the smoke-size render on the card within -100 dBFS of the
-   same render on the CPU; timing;
+   same render on the CPU; timing; then (3b) the ER (x) IR kernel
+   ``space_conv.cu`` at config 3's shapes against its plain version on the
+   card (bit-equal) and the host ``np.convolve`` (within 1 f32 ulp),
+   timed warm and L2 flushed beside its bound, the plain version and the
+   host convolution, and ``_space_kernels`` on fresh seeds, card and CPU,
+   a miss on the card split into its steps; the ``space_conv`` row counts
+   the launches of the main path's ``_space_kernels`` calls (3b, the
+   render of 3, phases 9 and 11-13) under ``launches_by_path``;
 4. tape: the lerp-read kernel against its plain version at the full-size
    render's own positions (bit-equal, timed, with its bound; no one
    PyTorch call computes the read); the render through
@@ -285,6 +296,7 @@ the one before that the kernels' table as JSON.  Imports nothing of JAX or
 of the JAX package.
 """
 import ctypes
+import hashlib
 import json
 import os
 import re
@@ -309,14 +321,17 @@ FLUSH_BYTES = 256 << 20    # read before each L2-flushed call (L2: 50 MB)
 HBM_BYTES_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOP_S = 67e12         # H100 SXM f32 rate outside the tensor cores
 KERNELS = ("overlap_add", "lerp_read", "grain_scan", "tape_scan",
-           "voice_bank")                               # one nvcc each
+           "voice_bank", "space_conv")                 # one nvcc each
 # launch-counting wrappers: lerp_read.cu's two kernels, grain_scan.cu's
 # four entry points and voice_bank.cu's four count apart
 WRAPPERS = ("overlap_add", "lerp_read", "scrub_read", "stick_slip_scan",
             "stick_slip_noise_scan", "chaos_scan", "waveguide_scan",
             "tape_scan", "voice_bank_fm", "voice_bank_psg", "voice_bank_fir",
-            "voice_bank_scan")
+            "voice_bank_scan", "space_conv")
 F32_OP_S = F32_FLOP_S / 2  # unfused f32 multiplies or adds a second
+F64_OP_S = 132 * 64 * 1.98e9  # f64 instructions a second: SMs x f64 lanes
+#                               x the maximum SM clock
+SPACE_SEEDS = 7            # fresh seeds through _space_kernels, each device
 BANK_SEED = 123457         # the voice bank's timed programs
 TAPE_SECONDS = 180.0   # bench config 1's tape and target length
 TAPE_FRAMES = 8745204  # its output frames after the retime
@@ -719,8 +734,9 @@ def oa_index(starts, Lw: int, N: int):
     return (s[:, None] + torch.arange(Lw, device=s.device)).reshape(-1)
 
 
-def microsound_path(dev, card: str) -> dict:
-    """Phase 3: the Microsound config-3 path; returns its kernel row."""
+def microsound_path(dev, card: str) -> tuple:
+    """Phase 3: the Microsound config-3 path; returns (its kernel row,
+    the first render's launches by wrapper)."""
     from audio_suite_torch import kernels
     from audio_suite_torch.models import microsound as ms
     from audio_suite_torch.ops import overlap_add as oa
@@ -764,7 +780,9 @@ def microsound_path(dev, card: str) -> dict:
           f"index_add_ warm {library_ms:.4f} ms (max |err| vs plain "
           f"{lib_err:.3g}, for information) {card}", flush=True)
 
-    # the main path, every launch counted: one render
+    # the main path, every launch counted: one render, its space kernels
+    # a memo miss
+    ms._SPACE_KERNEL_CACHE.clear()
     reset_counts()
     y16, meta = ms.render(p, ir_audio=ir, device=dev, pcm16=True)
     torch.cuda.synchronize()
@@ -779,6 +797,9 @@ def microsound_path(dev, card: str) -> dict:
     if launches["overlap_add"] < 1:
         raise AssertionError("the render did not launch the overlap_add "
                              "kernel")
+    if launches["space_conv"] != 1:
+        raise AssertionError(f"the render launched space_conv "
+                             f"{launches['space_conv']} times, not once")
     print(f"render: {meta['events']} events -> {tuple(y16.shape)} int16, "
           f"peak {peak16}; kernel launches {launches}", flush=True)
 
@@ -835,7 +856,120 @@ def microsound_path(dev, card: str) -> dict:
             "launches_per_render": launches["overlap_add"] / renders,
             "max_abs_err": oa_err, "ms": oa_ms, "ms_l2_flushed": cold_ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms}, launches
+
+
+def space_conv_path(dev, card: str) -> dict:
+    """Phase 3b: ``kernels/space_conv.cu``, Microsound's ER (x) IR, at
+    config 3's shapes (the ER kernel of seed 5, the seeded 8 192-tap IR)
+    against its plain version on the card (bit-equal) and the host's f64
+    ``np.convolve`` (the CPU path: bit-equal, or within 1 f32 ulp a tap),
+    timed warm and L2 flushed beside its bound, the plain version and the
+    host convolution; then ``_space_kernels`` on fresh seeds on the card
+    (one launch each) and on the CPU, host ms a call, and a miss on the
+    card split into its steps.  Returns its row, whose launches are those
+    of the ``_space_kernels`` calls."""
+    from audio_suite_torch import kernels
+    from audio_suite_torch.models import microsound as ms
+    from audio_suite_torch.ops import space
+
+    p, ir = config3(full=True)
+    er = space.er_tap_kernel(p.er_taps, p.er_max_ms, p.base_sr, p.seed)
+    irm = ms._space_ir(p, ir)
+    offs, gains, ir64 = space.space_conv_inputs(er, irm, dev)
+    n_taps, n_er, n_ir = offs.shape[0], er.size, irm.size
+
+    def launch():
+        return kernels.space_conv(offs, gains, ir64, n_er)
+
+    reset_counts()
+    got = launch()
+    plain = space.er_ir_convolve_plain(offs, gains, ir64, n_er)
+    torch.cuda.synchronize()
+    if read_counts()["space_conv"] != 1:
+        raise AssertionError("space_conv did not launch once")
+    if not torch.equal(got, plain):
+        raise AssertionError("space_conv differs from its plain version")
+    host = np.convolve(er.astype(np.float64), irm).astype(np.float32)
+    gap = np.abs(got.cpu().numpy().view(np.int32).astype(np.int64)
+                 - host.view(np.int32))
+    if gap.max() > 1:
+        raise AssertionError(f"space_conv is {gap.max()} f32 ulps from the "
+                             f"host np.convolve")
+    warm = kernel_ms(launch, TIMED_KERNEL_RUNS, KERNEL_LAUNCHES)
+    cold = flushed_ms(launch, KERNEL_LAUNCHES)
+    plain_ms = cuda_ms(lambda: space.er_ir_convolve_plain(offs, gains, ir64,
+                                                          n_er),
+                       TIMED_KERNEL_RUNS)
+    host_s = []
+    for _ in range(TIMED_RENDERS):
+        t0 = time.perf_counter()
+        np.convolve(er.astype(np.float64), irm).astype(np.float32)
+        host_s.append(time.perf_counter() - t0)
+    host_ms = statistics.median(host_s) * 1e3
+    products = n_taps * n_ir
+    t_ops = 2 * products / F64_OP_S * 1e3
+    nbytes = 8 * n_ir + 8 * n_taps + 4 * (n_er + n_ir - 1)
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    bound, bound_by = ((t_ops, "operations") if t_ops >= t_bytes
+                       else (t_bytes, "bytes"))
+
+    # the layer: a miss of _space_kernels (ER taps, the IR and its digest,
+    # one copy, the launch) on fresh seeds, host ms a call, on each device
+    layer = {}
+    n0 = kernels.space_conv.launches
+    for label, d in (("cuda", dev), ("cpu", "cpu")):
+        walls = []
+        for k in range(SPACE_SEEDS):
+            q = ms.MicrosoundParams.from_dict({**p.to_dict(),
+                                               "seed": 1000 + k})
+            t0 = time.perf_counter()
+            ms._space_kernels(q, ir, d)
+            walls.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        layer[label] = statistics.median(walls[1:]) * 1e3
+    misses = kernels.space_conv.launches - n0
+    if misses != SPACE_SEEDS:
+        raise AssertionError(f"{misses} launches for {SPACE_SEEDS} fresh "
+                             f"seeds on the card")
+    # the card's miss by step, as _space_kernels takes them, host ms
+    steps = {"taps": [], "ir_digest": [], "copy": [], "launch": []}
+    for k in range(SPACE_SEEDS):
+        t0 = time.perf_counter()
+        e = space.er_tap_kernel(p.er_taps, p.er_max_ms, p.base_sr, 2000 + k)
+        t1 = time.perf_counter()
+        irk = ms._space_ir(p, ir)
+        hashlib.blake2b(irk.tobytes(), digest_size=16).digest()
+        t2 = time.perf_counter()
+        o, g, i64 = space.space_conv_inputs(e, irk, dev)
+        t3 = time.perf_counter()
+        kernels.space_conv(o, g, i64, e.size)
+        i64.float()
+        t4 = time.perf_counter()
+        torch.cuda.synchronize()
+        for name, dt in zip(steps, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            steps[name].append(dt)
+    split = {name: statistics.median(v[1:]) * 1e3
+             for name, v in steps.items()}
+    print(f"space_conv: {n_taps} nonzero taps of {n_er}, IR {n_ir}: "
+          f"bit-equal to plain; {int((gap > 0).sum())} taps off the host "
+          f"np.convolve (max {int(gap.max())} ulp); kernel warm "
+          f"{warm:.4f} ms, L2 flushed {cold:.4f} ms ({bound / cold:.1%} of "
+          f"its {bound:.5f} ms bound by {bound_by}: {2 * products} f64 "
+          f"ops at {F64_OP_S / 1e12:.2f} T/s, {nbytes} bytes); plain "
+          f"{plain_ms:.3f} ms; host np.convolve {host_ms:.3f} ms; "
+          f"_space_kernels a miss, host ms: card {layer['cuda']:.3f} ("
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+          + f"), CPU {layer['cpu']:.3f} {card}", flush=True)
+    return {"name": "space_conv", "route": "cuda",
+            "source": "audio_suite_torch/kernels/space_conv.cu",
+            "replaces": "none: the host np.convolve of "
+                        "models/microsound.py:_space_kernels",
+            "launches": misses, "launches_by_path": {"space_kernels": misses},
+            "taps": n_taps, "ulp_gaps": int((gap > 0).sum()),
+            "ms": warm, "ms_l2_flushed": cold, "plain_ms": plain_ms,
+            "host_ms": host_ms, "bound_ms": bound, "bound_by": bound_by,
+            "space_kernels_ms": layer, "space_kernels_miss_steps_ms": split}
 
 
 def tape_path(dev, card: str) -> dict:
@@ -2361,7 +2495,7 @@ def scan_ab(dev, card: str, src: str) -> dict:
 
 def microsound_all_path(dev, card: str):
     """Phase 9: every Microsound mode and option; returns (the grain_scan
-    rows, the phase's overlap-add launches).  The stick-slip renders draw
+    rows, the main path's launches by wrapper).  The stick-slip renders draw
     their two noise rows in the kernel: a torch ``noise.normal`` call of
     the build or out stream during the main path fails the phase."""
     from audio_suite_torch import kernels
@@ -2490,7 +2624,7 @@ def microsound_all_path(dev, card: str):
         tg._compare(key, tg._fingerprint(y.cpu().numpy()), goldens[key])
         print(f"check: golden {key} passes on the card", flush=True)
     print(f"phase 9: {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return list(rows.values()), launches["overlap_add"]
+    return list(rows.values()), launches
 
 
 # tests/test_goldens.py:203-229 (SR 8000)
@@ -4007,6 +4141,10 @@ def main() -> int:
         print(json.dumps({"scan_ab": scan_ab(dev, card, sys.argv[2])}))
         print(name_limit)
         return 0
+    if sys.argv[1:2] == ["--space"]:
+        print(json.dumps({"kernels": [space_conv_path(dev, card)]}))
+        print(name_limit)
+        return 0
     if sys.argv[1:2] == ["--bank"]:
         print(json.dumps({"kernels": [voice_bank_path(dev, card)]}))
         print(name_limit)
@@ -4021,7 +4159,8 @@ def main() -> int:
     # row counts the launches of both and holds config 4's figures; the
     # lerp read's clamp form carries the tape, its fused scrub form (a
     # second kernel of the same source) the scrub
-    oa_row = microsound_path(dev, card)
+    oa_row, ms_counts = microsound_path(dev, card)
+    sc_row = space_conv_path(dev, card)
     lr_row = tape_path(dev, card)
     pl_oa = patternlab_path(dev, card)
     vb_row = voice_bank_path(dev, card)
@@ -4030,11 +4169,18 @@ def main() -> int:
     sr_row = scrub_path(dev, card)
     grid = grid_path(dev, card)
     fire_path(dev, card, grid["run_wall_ms"])
-    scan_rows_, ms_oa = microsound_all_path(dev, card)
+    scan_rows_, ms_all = microsound_all_path(dev, card)
     oa_row["launches_by_path"] = {"microsound": oa_row["launches"],
                                   "patternlab": pl_oa["launches"],
-                                  "microsound_all_paths": ms_oa}
-    oa_row["launches"] += pl_oa["launches"] + ms_oa
+                                  "microsound_all_paths":
+                                      ms_all["overlap_add"]}
+    oa_row["launches"] += pl_oa["launches"] + ms_all["overlap_add"]
+    # the space kernel's row counts the launches of the main path's
+    # _space_kernels calls: phase 3b's, phase 3's render, phase 9 and,
+    # below, the parallel layer, the CLI and the harness
+    sc_row["launches_by_path"].update(
+        microsound=ms_counts["space_conv"],
+        microsound_all_paths=ms_all["space_conv"])
     oa_row["config4"] = pl_oa
     # ---- 10. the tape's trace, segment and scan paths; the clamp read
     # carries the trace and the segment engine too
@@ -4050,7 +4196,8 @@ def main() -> int:
                       {"microsound_all_paths": ss_row["launches"]})
     for row, name in ((oa_row, "overlap_add"), (lr_row, "lerp_read"),
                       (sr_row, "scrub_read"),
-                      (ss_row, "stick_slip_noise_scan")):
+                      (ss_row, "stick_slip_noise_scan"),
+                      (sc_row, "space_conv")):
         for path in ("batch", "dryrun"):
             if par[path][name]:
                 row["launches_by_path"][path] = par[path][name]
@@ -4062,6 +4209,7 @@ def main() -> int:
                       (ss_row, "stick_slip_noise_scan")):
         row["launches_by_path"]["cli"] = cli[name]
         row["launches"] += cli[name]
+    sc_row["launches_by_path"]["cli"] = cli["space_conv"]
     # the voice bank's launches: phase 5, the CLI and the harness
     vb_row["launches_by_path"]["cli"] = sum(cli[k] for k in BANK_WRAPPERS)
     # ---- 13. the harness: its launches join their rows
@@ -4070,13 +4218,15 @@ def main() -> int:
                       (sr_row, "scrub_read")):
         row["launches_by_path"]["bench"] = bench_counts[name]
         row["launches"] += bench_counts[name]
+    sc_row["launches_by_path"]["bench"] = bench_counts["space_conv"]
+    sc_row["launches"] = sum(sc_row["launches_by_path"].values())
     vb_row["launches_by_path"]["bench"] = sum(bench_counts[k]
                                               for k in BANK_WRAPPERS)
     for path in ("cli", "bench"):
         if not vb_row["launches_by_path"][path]:
             raise AssertionError(f"the {path} path launched no voice bank")
         vb_row["launches"] += vb_row["launches_by_path"][path]
-    rows = [oa_row, lr_row, sr_row] + scan_rows_ + [ts_row, vb_row]
+    rows = [oa_row, lr_row, sr_row] + scan_rows_ + [ts_row, vb_row, sc_row]
 
     print(json.dumps({"kernels": rows}))
     print(name_limit)

@@ -252,6 +252,20 @@ def test_er_tap_kernel_and_diffusion_taps_equal():
         assert space._diffusion_taps(phi) == j_space._diffusion_taps(phi)
 
 
+@pytest.mark.parametrize("taps,max_ms,sr", [
+    (320, 45.0, 192000),       # config 3: the benchmark's Microsound cells
+    (24, 0.31, 8000),          # offsets of 0 (dropped) and stacked taps
+    (4000, 2.0, 48000),        # many taps a tap slot: the order of the adds
+    (1, 120.0, 384000)])
+def test_er_tap_kernel_equal_on_many_seeds(taps, max_ms, sr):
+    """The port's vectorized tap sum against the JAX package's loop."""
+    for seed in np.random.default_rng(taps).integers(0, 2 ** 31, 40):
+        want = j_space.er_tap_kernel(taps, max_ms, sr, int(seed))
+        got = space.er_tap_kernel(taps, max_ms, sr, int(seed))
+        assert got.dtype == want.dtype == np.float32
+        assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
 @pytest.mark.parametrize("N,K", [(24000, 10353), (3200, 122), (5000, 1)])
 def test_fft_convolve_causal(N, K):
     rng = np.random.default_rng(N + K)

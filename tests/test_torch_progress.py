@@ -89,7 +89,7 @@ def test_render_program_passes_progress():
     _, pt = _params(gen_mode="Gaussian click")
     prog = tms.build_program(pt)
     got, cb = _calls()
-    tms.render_program(pt, prog, tms._space_kernels(pt, None),
+    tms.render_program(pt, prog, tms._space_kernels(pt, None, device="cpu"),
                        device="cpu", event_chunk=4, progress=cb)
     n = -(-prog["E"] // 4)
     assert got == [(int(5 + 70 * (ci + 1) / n), f"Events chunk {ci + 1}/{n}")

@@ -181,8 +181,8 @@ def test_space_kernels_hit_is_false_then_true(monkeypatch):
     monkeypatch.setattr(ms, "_SPACE_KERNEL_CACHE", {})
     prof.enable()
     p = _ms_params(seed=21)
-    first = ms._space_kernels(p, IR)
-    second = ms._space_kernels(p, IR)
+    first = ms._space_kernels(p, IR, device="cpu")
+    second = ms._space_kernels(p, IR, device="cpu")
     assert all(np.array_equal(a, b) for a, b in zip(first[:2], second[:2]))
     hits = [r.attrs["hit"] for r in prof.records()
             if r.name == "microsound.space_kernels"]
