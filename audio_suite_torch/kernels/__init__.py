@@ -6,8 +6,9 @@ into ``_build/`` beside it (git-ignored), named by a hash of the source and
 the flags, and loaded with ``ctypes``.  Nothing is built or loaded at import
 time.  A failed build or launch raises: there is no fallback.
 
-Each kernel wrapper counts its launches in its ``launches`` attribute, so
-a run can show that its main path went through the kernel.
+Each kernel wrapper checks its tensors with ``_check`` and launches through
+``_launch``, which counts the launch in the wrapper's ``launches``
+attribute, so a run can show that its main path went through the kernel.
 """
 from __future__ import annotations
 
@@ -92,9 +93,6 @@ _SIGNATURES = {
         "lr_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
     "grain_scan": {
-        "gs_stick_slip": ([_P, _P, _P, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_float, ctypes.c_float, ctypes.c_float,
-                           ctypes.c_float, _P], ctypes.c_int),
         "gs_stick_slip_noise": ([_P, _P, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_float, ctypes.c_float,
                                  ctypes.c_float, ctypes.c_float,
@@ -166,40 +164,77 @@ def _lib(name: str) -> ctypes.CDLL:
         return lib
 
 
+# each library's error string: the entry named <prefix>_error_string
+_ERROR_STRING = {name: next(fn for fn in sigs if fn.endswith("_error_string"))
+                 for name, sigs in _SIGNATURES.items()}
+
+
+def _launch(name: str, lib: str, fn: str, dev: torch.device, *args,
+            tail=()) -> None:
+    """Launch ``fn`` of library ``lib`` on ``dev``'s current stream: its
+    arguments are ``args``, the stream, then ``tail``.  A failed launch
+    raises with the library's error string; a launch is counted in the
+    ``launches`` of the wrapper ``name``, looked up in the module, so a
+    stand-in set there by ``setattr`` counts it."""
+    so = _lib(lib)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(so, fn)(*args, stream, *tail)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed ({fn}): "
+                           + getattr(so, _ERROR_STRING[lib])(rc).decode())
+    globals()[name].launches += 1
+
+
+def _counted(wrapper):
+    """A kernel wrapper with its launch counter at 0."""
+    wrapper.launches = 0
+    return wrapper
+
+
+def _check(name: str, tensors, dtypes, shapes) -> None:
+    """Every tensor on one CUDA device, contiguous, of its dtype and shape:
+    a tuple is the shape, an int the number of dimensions (the wrapper
+    checks how those lengths relate).  Each test is one cheap call: a
+    launch pays them all on the host."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} kernel: tensors must be on a CUDA device")
+    for t, dt, shp in zip(tensors, dtypes, shapes):
+        if t.device != dev:
+            raise ValueError(f"{name} kernel: tensors must share one CUDA "
+                             "device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} kernel: tensors must be contiguous")
+        if t.dtype != dt:
+            raise TypeError(f"{name} kernel: wants {dt}, got {t.dtype}")
+        if t.dim() != shp if type(shp) is int else t.shape != shp:
+            raise ValueError(f"{name} kernel: wants shape {shp}, got "
+                             f"{tuple(t.shape)}")
+
+
+_F32, _F64, _I32 = torch.float32, torch.float64, torch.int32
+
+
+@_counted
 def overlap_add(out: torch.Tensor, vals: torch.Tensor,
                 starts: torch.Tensor) -> torch.Tensor:
     """Launch ``overlap_add.cu`` on the current stream: ``out`` f32[N] +=
     the windows ``vals`` f32[E, Lw] at ``starts`` i32[E], in event order,
     in place.  All three on one CUDA device, contiguous; 0 < Lw <= N."""
-    for t in (out, vals, starts):
-        if t.device.type != "cuda":
-            raise ValueError("overlap_add kernel: tensors must be on CUDA")
-        if not t.is_contiguous():
-            raise ValueError("overlap_add kernel: tensors must be "
-                             "contiguous")
-    if starts.dtype != torch.int32:
-        raise TypeError("overlap_add kernel: starts must be int32")
+    _check("overlap_add", (out, vals, starts), (_F32, _F32, _I32), (1, 2, 1))
     E, Lw = vals.shape
     N = out.shape[0]
-    if not 0 < Lw <= N:
-        raise ValueError(f"overlap_add kernel: window {Lw}, buffer {N}")
-    if E == 0:
-        return out
-    lib = _lib("overlap_add")
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        rc = lib.oa_launch(vals.data_ptr(), starts.data_ptr(),
-                           out.data_ptr(), E, Lw, N, stream)
-    if rc != 0:
-        raise RuntimeError("overlap_add kernel launch failed: "
-                           + lib.oa_error_string(rc).decode())
-    overlap_add.launches += 1
+    if starts.shape[0] != E or not 0 < Lw <= N:
+        raise ValueError(f"overlap_add kernel: {E} windows of {Lw}, "
+                         f"{starts.shape[0]} starts, buffer {N}")
+    if E:
+        _launch("overlap_add", "overlap_add", "oa_launch", out.device,
+                vals.data_ptr(), starts.data_ptr(), out.data_ptr(), E, Lw, N)
     return out
 
 
-overlap_add.launches = 0
-
-
+@_counted
 def lerp_read(audio: torch.Tensor, idx0: torch.Tensor,
               fr: torch.Tensor) -> torch.Tensor:
     """Launch ``lerp_read.cu`` on the current stream and return the new
@@ -207,41 +242,20 @@ def lerp_read(audio: torch.Tensor, idx0: torch.Tensor,
     ``i0 = clamp(idx0, 0, n - 1)`` and ``i1 = min(i0 + 1, n - 1)``.
     ``audio`` f32[n], ``idx0`` i32[T], ``fr`` f32[T], all on one CUDA
     device, contiguous; 0 < n < 2**31."""
-    for t in (audio, idx0, fr):
-        if t.device.type != "cuda":
-            raise ValueError("lerp_read kernel: tensors must be on CUDA")
-        if not t.is_contiguous():
-            raise ValueError("lerp_read kernel: tensors must be contiguous")
-    if not (audio.device == idx0.device == fr.device):
-        raise ValueError("lerp_read kernel: tensors must share one device")
-    if audio.dtype != torch.float32 or fr.dtype != torch.float32:
-        raise TypeError("lerp_read kernel: audio and fr must be float32")
-    if idx0.dtype != torch.int32:
-        raise TypeError("lerp_read kernel: idx0 must be int32")
-    if audio.dim() != 1 or idx0.dim() != 1 or idx0.shape != fr.shape:
-        raise ValueError("lerp_read kernel: wants audio [n], idx0 [T], "
-                         "fr [T]")
+    _check("lerp_read", (audio, idx0, fr), (_F32, _I32, _F32),
+           (1, 1, idx0.shape))
     n, T = audio.shape[0], idx0.shape[0]
     if not 0 < n < 2 ** 31:
         raise ValueError(f"lerp_read kernel: audio length {n}")
     out = torch.empty(T, dtype=torch.float32, device=audio.device)
-    if T == 0:
-        return out
-    lib = _lib("lerp_read")
-    with torch.cuda.device(audio.device):
-        stream = torch.cuda.current_stream(audio.device).cuda_stream
-        rc = lib.lr_launch(audio.data_ptr(), idx0.data_ptr(), fr.data_ptr(),
-                           out.data_ptr(), T, n, stream)
-    if rc != 0:
-        raise RuntimeError("lerp_read kernel launch failed: "
-                           + lib.lr_error_string(rc).decode())
-    lerp_read.launches += 1
+    if T:
+        _launch("lerp_read", "lerp_read", "lr_launch", audio.device,
+                audio.data_ptr(), idx0.data_ptr(), fr.data_ptr(),
+                out.data_ptr(), T, n)
     return out
 
 
-lerp_read.launches = 0
-
-
+@_counted
 def scrub_read(audio: torch.Tensor, whole: torch.Tensor, frac: torch.Tensor,
                off_whole, off_frac, gain: float, summed: bool,
                env_blocks: torch.Tensor, block_size: int, out: torch.Tensor,
@@ -254,26 +268,10 @@ def scrub_read(audio: torch.Tensor, whole: torch.Tensor, frac: torch.Tensor,
     / ``frac`` i32[T], ``out`` [T], ``env_blocks`` f32, all on one CUDA
     device, contiguous, 0 < n < 2**31, T < 2**30; ``off_whole`` /
     ``off_frac`` 1 to 3 host ints each; ``gain`` an f32 value."""
-    tensors = (audio, whole, frac, env_blocks, out)
-    for t in tensors:
-        if t.device.type != "cuda":
-            raise ValueError("scrub_read kernel: tensors must be on CUDA")
-        if not t.is_contiguous():
-            raise ValueError("scrub_read kernel: tensors must be "
-                             "contiguous")
-    if any(t.device != audio.device for t in tensors):
-        raise ValueError("scrub_read kernel: tensors must share one device")
-    if audio.dtype != torch.float32 or env_blocks.dtype != torch.float32:
-        raise TypeError("scrub_read kernel: audio and env_blocks must be "
-                        "float32")
-    if whole.dtype != torch.int32 or frac.dtype != torch.int32:
-        raise TypeError("scrub_read kernel: whole and frac must be int32")
-    if out.dtype not in (torch.float32, torch.int16):
+    if out.dtype not in (_F32, torch.int16):
         raise TypeError("scrub_read kernel: out must be float32 or int16")
-    if any(t.dim() != 1 for t in tensors) \
-            or not whole.shape == frac.shape == out.shape:
-        raise ValueError("scrub_read kernel: wants audio [n], whole [T], "
-                         "frac [T], env_blocks [B], out [T]")
+    _check("scrub_read", (audio, whole, frac, env_blocks, out),
+           (_F32, _I32, _I32, _F32, out.dtype), (1, out.shape, out.shape, 1, 1))
     ow, of = [int(v) for v in off_whole], [int(v) for v in off_frac]
     if not 1 <= len(ow) == len(of) <= MAX_HEADS:
         raise ValueError(f"scrub_read kernel: {len(ow)} / {len(of)} head "
@@ -292,75 +290,17 @@ def scrub_read(audio: torch.Tensor, whole: torch.Tensor, frac: torch.Tensor,
     if t1 > t0 and (t1 - 1) // block_size >= env_blocks.shape[0]:
         raise ValueError(f"scrub_read kernel: {env_blocks.shape[0]} "
                          f"envelope blocks of {block_size} for {t1} samples")
-    if t1 == t0:
-        return out
-    lib = _lib("lerp_read")
-    heads = ctypes.c_int * len(ow)
-    with torch.cuda.device(audio.device):
-        stream = torch.cuda.current_stream(audio.device).cuda_stream
-        rc = lib.sr_launch(audio.data_ptr(), n, whole.data_ptr(),
-                           frac.data_ptr(), env_blocks.data_ptr(),
-                           int(block_size), out.data_ptr(),
-                           int(out.dtype == torch.int16), int(t0), int(t1),
-                           len(ow), heads(*ow), heads(*of),
-                           int(bool(summed)), float(gain), stream)
-    if rc != 0:
-        raise RuntimeError("scrub_read kernel launch failed: "
-                           + lib.lr_error_string(rc).decode())
-    scrub_read.launches += 1
+    if t1 > t0:
+        heads = ctypes.c_int * len(ow)
+        _launch("scrub_read", "lerp_read", "sr_launch", audio.device,
+                audio.data_ptr(), n, whole.data_ptr(), frac.data_ptr(),
+                env_blocks.data_ptr(), int(block_size), out.data_ptr(),
+                int(out.dtype == torch.int16), int(t0), int(t1), len(ow),
+                heads(*ow), heads(*of), int(bool(summed)), float(gain))
     return out
 
 
-scrub_read.launches = 0
-
-
-def _scan_check(name: str, tensors, dtypes, shapes):
-    """The grain-scan wrappers' checks: every tensor on one CUDA device,
-    contiguous, of its dtype and shape."""
-    dev = tensors[0].device
-    for t, dt, shp in zip(tensors, dtypes, shapes):
-        if t.device.type != "cuda" or t.device != dev:
-            raise ValueError(f"{name} kernel: tensors must share one CUDA "
-                             "device")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} kernel: tensors must be contiguous")
-        if t.dtype != dt:
-            raise TypeError(f"{name} kernel: wants {dt}, got {t.dtype}")
-        if tuple(t.shape) != tuple(shp):
-            raise ValueError(f"{name} kernel: wants shape {tuple(shp)}, "
-                             f"got {tuple(t.shape)}")
-
-
-def _gs_run(fn: str, dev, *args):
-    lib = _lib("grain_scan")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, fn)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"grain_scan kernel {fn} launch failed: "
-                           + lib.gs_error_string(rc).decode())
-
-
-def stick_slip_scan(bn: torch.Tensor, on: torch.Tensor, threshold: float,
-                    build: float, decay: float, noise_amt: float
-                    ) -> torch.Tensor:
-    """Launch ``grain_scan.cu``'s stick-slip recurrence on the current
-    stream and return the new xs f32 [E, L] from the noise rows bn, on
-    f32 [E, L] (contiguous, on one CUDA device); the scalars are f32
-    values."""
-    E, L = bn.shape
-    _scan_check("stick_slip", (bn, on), (torch.float32,) * 2, ((E, L),) * 2)
-    xs = torch.empty_like(bn)
-    if E and L:
-        _gs_run("gs_stick_slip", bn.device, bn.data_ptr(), on.data_ptr(),
-                xs.data_ptr(), E, L, threshold, build, decay, noise_amt)
-        stick_slip_scan.launches += 1
-    return xs
-
-
-stick_slip_scan.launches = 0
-
-
+@_counted
 def stick_slip_noise_scan(seed: torch.Tensor, L: int, threshold: float,
                           build: float, decay: float, noise_amt: float,
                           streams: tuple[int, int]) -> torch.Tensor:
@@ -370,88 +310,83 @@ def stick_slip_noise_scan(seed: torch.Tensor, L: int, threshold: float,
     t in [0, L) and s each of ``streams`` (the build and the out stream),
     from the seeds int32 [E] (contiguous, on a CUDA device; read as
     uint32); the scalars are f32 values."""
-    E = seed.shape[0] if seed.dim() == 1 else -1
-    _scan_check("stick_slip_noise", (seed,), (torch.int32,), ((E,),))
+    _check("stick_slip_noise", (seed,), (_I32,), (1,))
     if L < 1:
         raise ValueError(f"stick_slip_noise kernel: L {L} (at least 1)")
+    E = seed.shape[0]
     xs = torch.empty(E, L, dtype=torch.float32, device=seed.device)
     if E:
         sb, so = (int(s) & 0xFFFFFFFF for s in streams)
-        _gs_run("gs_stick_slip_noise", seed.device, seed.data_ptr(),
-                xs.data_ptr(), E, L, threshold, build, decay, noise_amt, sb,
-                so)
-        stick_slip_noise_scan.launches += 1
+        _launch("stick_slip_noise_scan", "grain_scan", "gs_stick_slip_noise",
+                seed.device, seed.data_ptr(), xs.data_ptr(), E, L, threshold,
+                build, decay, noise_amt, sb, so)
     return xs
 
 
-stick_slip_noise_scan.launches = 0
-
-
+@_counted
 def chaos_scan(gates: torch.Tensor, y0: torch.Tensor, r: float,
                gate: float) -> torch.Tensor:
     """Launch ``grain_scan.cu``'s gated logistic map on the current stream
     and return the new xs f32 [E, L] from gates f32 [E, L] and the starts
     y0 f32 [E]."""
+    _check("chaos", (gates, y0), (_F32, _F32), (2, 1))
     E, L = gates.shape
-    _scan_check("chaos", (gates, y0), (torch.float32,) * 2, ((E, L), (E,)))
+    if y0.shape[0] != E:
+        raise ValueError(f"chaos kernel: {E} rows, {y0.shape[0]} starts")
     xs = torch.empty_like(gates)
     if E and L:
-        _gs_run("gs_chaos", gates.device, gates.data_ptr(), y0.data_ptr(),
-                xs.data_ptr(), E, L, r, gate)
-        chaos_scan.launches += 1
+        _launch("chaos_scan", "grain_scan", "gs_chaos", gates.device,
+                gates.data_ptr(), y0.data_ptr(), xs.data_ptr(), E, L, r,
+                gate)
     return xs
 
 
-chaos_scan.launches = 0
-
-
+@_counted
 def waveguide_scan(x: torch.Tensor, d: torch.Tensor, g: torch.Tensor,
                    mix: torch.Tensor) -> torch.Tensor:
     """Launch ``grain_scan.cu``'s waveguide delay lines on the current
     stream and return the new y f32 [E, L] from x f32 [E, L], the delays
     d i32 [E, lines], the gains g and the mixes f32 [E, lines]: one block
     per event, its row in shared memory where it fits."""
-    E, L = x.shape
-    lines = d.shape[1] if d.dim() == 2 else -1
-    _scan_check("waveguide", (x, d, g, mix),
-                (torch.float32, torch.int32, torch.float32, torch.float32),
-                ((E, L), (E, lines), (E, lines), (E, lines)))
+    _check("waveguide", (x, d, g, mix), (_F32, _I32, _F32, _F32),
+           (2, 2, d.shape, d.shape))
+    (E, L), lines = x.shape, d.shape[1]
+    if d.shape[0] != E:
+        raise ValueError(f"waveguide kernel: {E} rows, {d.shape[0]} delays")
     y = torch.empty_like(x)
-    if E and L and lines > 0:
-        _gs_run("gs_waveguide", x.device, x.data_ptr(), d.data_ptr(),
-                g.data_ptr(), mix.data_ptr(), y.data_ptr(), E, L, lines)
-        waveguide_scan.launches += 1
+    if E and L and lines:
+        _launch("waveguide_scan", "grain_scan", "gs_waveguide", x.device,
+                x.data_ptr(), d.data_ptr(), g.data_ptr(), mix.data_ptr(),
+                y.data_ptr(), E, L, lines)
     else:
         y.copy_(x)
     return y
 
 
-waveguide_scan.launches = 0
+def _vb_rows(name: str, x, i32, widths=None) -> tuple[int, int]:
+    """A voice-bank launch's rows x f32 [count, n] and ints i32 [count, W]
+    (W >= 2, n >= 1; ``widths``: a pack's (n, W)): (count, n)."""
+    count, n = x.shape
+    if (i32.shape[0] != count or i32.shape[1] < 2 or n < 1
+            or widths is not None and (n, i32.shape[1]) != widths):
+        raise ValueError(f"{name} kernel: rows {tuple(x.shape)}, ints "
+                         f"{tuple(i32.shape)}"
+                         + (f" (widths {widths})" if widths else ""))
+    return count, n
 
 
-def _vb_run(fn: str, dev, *args):
-    lib = _lib("voice_bank")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, fn)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"voice_bank kernel {fn} launch failed: "
-                           + lib.vb_error_string(rc).decode())
-
-
-def _vb_check(name: str, f32, i32, widths, L: int, taps, consts):
-    count = f32.shape[0] if f32.dim() == 2 else -1
-    _scan_check(name, (f32, i32), (torch.float32, torch.int32),
-                ((count, widths[0]), (count, widths[1])))
+def _vb_params(name: str, L: int, taps, consts) -> None:
+    """A voice-bank launch's own scalars: the length, the lowpasses' tap
+    counts and the host constants."""
     if L < 1 or not (all(1 <= k < VOICE_BANK_MAX_TAPS for k in taps)
                      or not any(taps)):
         raise ValueError(f"{name} kernel: L {L}, taps {taps} (L >= 1, "
                          f"1 to {VOICE_BANK_MAX_TAPS - 1} taps, or all 0)")
     if consts.dtype != np.float32 or consts.ndim != 1:
         raise TypeError(f"{name} kernel: consts must be a host f32 vector")
-    return count
 
 
+@_counted
 def voice_bank_fm(f32: torch.Tensor, i32: torch.Tensor, L: int,
                   n_total: int, alg: int, vib: bool, fade: int, taps1: int,
                   taps2: int, consts: np.ndarray) -> torch.Tensor:
@@ -462,23 +397,21 @@ def voice_bank_fm(f32: torch.Tensor, i32: torch.Tensor, L: int,
     render's length, the fade's samples, the two lowpasses' tap counts
     (both 0: the signal unfiltered) and the host constants ``consts``
     (``ops/synth.py:bank_consts``)."""
-    count = _vb_check("voice_bank_fm", f32, i32, (36, 26), L,
-                      (taps1, taps2), consts)
+    _check("voice_bank_fm", (f32, i32), (_F32, _I32), (2, 2))
+    count, _ = _vb_rows("voice_bank_fm", f32, i32, (36, 26))
+    _vb_params("voice_bank_fm", L, (taps1, taps2), consts)
     if alg not in (1, 2, 3):
         raise ValueError(f"voice_bank_fm kernel: algorithm {alg}")
     out = torch.empty(count, L, dtype=torch.float32, device=f32.device)
     if count:
-        _vb_run("vb_fm_launch", f32.device, f32.data_ptr(), i32.data_ptr(),
-                count, L, int(n_total), int(alg), int(bool(vib)), int(fade),
-                int(taps1), int(taps2), consts.ctypes.data, consts.size,
-                out.data_ptr())
-        voice_bank_fm.launches += 1
+        _launch("voice_bank_fm", "voice_bank", "vb_fm_launch", f32.device,
+                f32.data_ptr(), i32.data_ptr(), count, L, int(n_total),
+                int(alg), int(bool(vib)), int(fade), int(taps1), int(taps2),
+                consts.ctypes.data, consts.size, out.data_ptr())
     return out
 
 
-voice_bank_fm.launches = 0
-
-
+@_counted
 def voice_bank_psg(f32: torch.Tensor, i32: torch.Tensor, L: int,
                    n_total: int, lfsr, fade: int, taps: int,
                    consts: np.ndarray) -> torch.Tensor:
@@ -489,36 +422,22 @@ def voice_bank_psg(f32: torch.Tensor, i32: torch.Tensor, L: int,
     [2**15], on the packs' device), the render's length, the fade's
     samples, the lowpass's tap count (0: the signal unfiltered) and the
     host constants."""
-    count = _vb_check("voice_bank_psg", f32, i32, (10, 10), L, (taps,),
-                      consts)
     orbit, base, pos, clen = lfsr
-    n = 1 << 15
-    _scan_check("voice_bank_psg", (f32, orbit, base, pos, clen),
-                (torch.float32, torch.float32) + (torch.int32,) * 3,
-                (f32.shape,) + ((n,),) * 4)
+    _check("voice_bank_psg", (f32, i32, orbit, base, pos, clen),
+           (_F32, _I32, _F32, _I32, _I32, _I32), (2, 2) + ((1 << 15,),) * 4)
+    count, _ = _vb_rows("voice_bank_psg", f32, i32, (10, 10))
+    _vb_params("voice_bank_psg", L, (taps,), consts)
     out = torch.empty(count, L, dtype=torch.float32, device=f32.device)
     if count:
-        _vb_run("vb_psg_launch", f32.device, f32.data_ptr(), i32.data_ptr(),
-                count, L, int(n_total), orbit.data_ptr(), base.data_ptr(),
-                pos.data_ptr(), clen.data_ptr(), int(fade), int(taps),
-                consts.ctypes.data, consts.size, out.data_ptr())
-        voice_bank_psg.launches += 1
+        _launch("voice_bank_psg", "voice_bank", "vb_psg_launch", f32.device,
+                f32.data_ptr(), i32.data_ptr(), count, L, int(n_total),
+                orbit.data_ptr(), base.data_ptr(), pos.data_ptr(),
+                clen.data_ptr(), int(fade), int(taps), consts.ctypes.data,
+                consts.size, out.data_ptr())
     return out
 
 
-voice_bank_psg.launches = 0
-
-
-def _vb_rows(name: str, x, i32):
-    count = x.shape[0] if x.dim() == 2 else -1
-    _scan_check(name, (x, i32), (torch.float32, torch.int32),
-                (x.shape, (count, i32.shape[-1])))
-    if i32.shape[-1] < 2 or x.shape[1] < 1:
-        raise ValueError(f"{name} kernel: rows {tuple(x.shape)}, "
-                         f"ints {tuple(i32.shape)}")
-    return count, x.shape[1]
-
-
+@_counted
 def voice_bank_fir(x: torch.Tensor, i32: torch.Tensor, n_total: int,
                    w: np.ndarray) -> torch.Tensor:
     """Launch ``voice_bank.cu``'s FIR pass on the current stream: the new
@@ -526,6 +445,7 @@ def voice_bank_fir(x: torch.Tensor, i32: torch.Tensor, n_total: int,
     taps: y = w0*x, then y + w_k*x[i-k]) along each row of ``x`` f32
     [count, L], zero from each row's clamp min(n, n_total - start) on; n
     and start are the first two columns of ``i32`` int32 [count, W]."""
+    _check("voice_bank_fir", (x, i32), (_F32, _I32), (2, 2))
     count, L = _vb_rows("voice_bank_fir", x, i32)
     if w.dtype != np.float32 or not 1 <= w.size < VOICE_BANK_MAX_TAPS:
         raise ValueError(f"voice_bank_fir kernel: weights {w.dtype} "
@@ -533,16 +453,13 @@ def voice_bank_fir(x: torch.Tensor, i32: torch.Tensor, n_total: int,
     w = np.ascontiguousarray(w)
     out = torch.empty_like(x)
     if count:
-        _vb_run("vb_fir_launch", x.device, x.data_ptr(), i32.data_ptr(),
-                i32.shape[1], count, L, int(n_total), w.size, w.ctypes.data,
-                out.data_ptr())
-        voice_bank_fir.launches += 1
+        _launch("voice_bank_fir", "voice_bank", "vb_fir_launch", x.device,
+                x.data_ptr(), i32.data_ptr(), i32.shape[1], count, L,
+                int(n_total), w.size, w.ctypes.data, out.data_ptr())
     return out
 
 
-voice_bank_fir.launches = 0
-
-
+@_counted
 def voice_bank_scan(x: torch.Tensor, i32: torch.Tensor, n_total: int,
                     coefs: np.ndarray) -> torch.Tensor:
     """Launch ``voice_bank.cu``'s doubling scan of a one-pole lowpass on
@@ -552,6 +469,7 @@ def voice_bank_scan(x: torch.Tensor, i32: torch.Tensor, n_total: int,
     [32] (1 - a, a, a**2, a**4, ..., a**(2**30)) of
     ``synth.scan_coefs``.  One launch for
     the steps d < VOICE_BANK_TILE, one for each later step d < L."""
+    _check("voice_bank_scan", (x, i32), (_F32, _I32), (2, 2))
     count, L = _vb_rows("voice_bank_scan", x, i32)
     if coefs.dtype != np.float32 or coefs.shape != (32,):
         raise ValueError(f"voice_bank_scan kernel: coefs {coefs.dtype} "
@@ -562,19 +480,17 @@ def voice_bank_scan(x: torch.Tensor, i32: torch.Tensor, n_total: int,
     tmp = torch.empty_like(x) if L > VOICE_BANK_TILE else None
     d, src = 0, x
     while True:
-        _vb_run("vb_scan_launch", x.device, src.data_ptr(), i32.data_ptr(),
-                i32.shape[1], count, L, int(n_total), d, coefs.ctypes.data,
-                coefs.size, out.data_ptr())
-        voice_bank_scan.launches += 1
+        _launch("voice_bank_scan", "voice_bank", "vb_scan_launch", x.device,
+                src.data_ptr(), i32.data_ptr(), i32.shape[1], count, L,
+                int(n_total), d, coefs.ctypes.data, coefs.size,
+                out.data_ptr())
         d = max(2 * d, VOICE_BANK_TILE)
         if d >= L:
             return out
         src, out = out, (tmp if src is x else src)
 
 
-voice_bank_scan.launches = 0
-
-
+@_counted
 def tape_scan(audio: torch.Tensor, mod_q: torch.Tensor, starts: torch.Tensor,
               ends: torch.Tensor, speeds_q: torch.Tensor,
               reverse: torch.Tensor, boundaries: torch.Tensor,
@@ -599,16 +515,13 @@ def tape_scan(audio: torch.Tensor, mod_q: torch.Tensor, starts: torch.Tensor,
     count (int32 [1]), both on the device.  ``marks``: two
     ``torch.cuda.Event``s recorded after the chunk sums and after the
     walk, to time the passes."""
-    S, B, E, T = (starts.shape[0], boundaries.shape[0], splice_env.shape[0],
-                  mod_q.shape[0])
-    n = audio.shape[0]
-    _scan_check("tape_scan",
-                (audio, mod_q, starts, ends, speeds_q, reverse, boundaries,
-                 splice_env, state),
-                (torch.float32, torch.float32, torch.int32, torch.int32,
-                 torch.float32, torch.bool, torch.int32, torch.float32,
-                 torch.int32),
-                ((n,), (T,), (S,), (S,), (S,), (S,), (B,), (E,), (5,)))
+    _check("tape_scan",
+           (audio, mod_q, starts, ends, speeds_q, reverse, boundaries,
+            splice_env, state),
+           (_F32, _F32, _I32, _I32, _F32, torch.bool, _I32, _F32, _I32),
+           (1, 1, 1, starts.shape, starts.shape, starts.shape, 1, 1, (5,)))
+    n, T, S, B, E = (audio.shape[0], mod_q.shape[0], starts.shape[0],
+                     boundaries.shape[0], splice_env.shape[0])
     if not 0 < n < 2 ** 31:
         raise ValueError(f"tape_scan kernel: audio length {n}")
     if S < 1 or 4 * S + B > TAPE_SCAN_MAX_TABLE_WORDS:
@@ -620,12 +533,10 @@ def tape_scan(audio: torch.Tensor, mod_q: torch.Tensor, starts: torch.Tensor,
         raise ValueError(f"tape_scan kernel: chunk {chunk} (a power of two "
                          f"in [{lo}, {hi}])")
     dev = audio.device
-    lib = _lib("tape_scan")
     out = torch.empty(T, dtype=torch.float32, device=dev)
     fin = torch.empty(5, dtype=torch.int32, device=dev)
-    scratch = torch.empty(lib.ts_scratch_words(T, S, chunk),
+    scratch = torch.empty(_lib("tape_scan").ts_scratch_words(T, S, chunk),
                           dtype=torch.int32, device=dev)
-    inv_smooth = 1.0 / max(1, int(smooth_len))
     handles = [None] * 2
     if marks is not None:
         if len(marks) != 2:
@@ -633,21 +544,15 @@ def tape_scan(audio: torch.Tensor, mod_q: torch.Tensor, starts: torch.Tensor,
         for e in marks:
             e.record()                     # creates the event
         handles = [e.cuda_event for e in marks]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ts_launch(
+    _launch("tape_scan", "tape_scan", "ts_launch", dev,
             audio.data_ptr(), n, mod_q.data_ptr(), T, starts.data_ptr(),
             ends.data_ptr(), speeds_q.data_ptr(), reverse.data_ptr(), S,
             boundaries.data_ptr(), B, splice_env.data_ptr(), E,
             int(bool(anticlick_on)), int(smooth_len), float(strength),
-            inv_smooth, int(bool(splice_on)), int(bool(inertia_on)),
-            float(alpha_q), state.data_ptr(), int(chunk),
-            scratch.data_ptr(), out.data_ptr(), fin.data_ptr(), stream,
-            *handles)
-    if rc != 0:
-        raise RuntimeError("tape_scan kernel launch failed: "
-                           + lib.ts_error_string(rc).decode())
-    tape_scan.launches += 1
+            1.0 / max(1, int(smooth_len)), int(bool(splice_on)),
+            int(bool(inertia_on)), float(alpha_q), state.data_ptr(),
+            int(chunk), scratch.data_ptr(), out.data_ptr(), fin.data_ptr(),
+            tail=handles)
     if not return_records:
         return out, fin
     nch = -(-T // chunk)
@@ -656,9 +561,7 @@ def tape_scan(audio: torch.Tensor, mod_q: torch.Tensor, starts: torch.Tensor,
             scratch[w * nch:w * nch + 1])
 
 
-tape_scan.launches = 0
-
-
+@_counted
 def space_conv(offs: torch.Tensor, gains: torch.Tensor, ir: torch.Tensor,
                n_er: int) -> torch.Tensor:
     """Launch ``space_conv.cu`` on the current stream and return the new
@@ -667,26 +570,14 @@ def space_conv(offs: torch.Tensor, gains: torch.Tensor, ir: torch.Tensor,
     < n_ir, rounded once to f32.  ``offs`` int32 [T] (ascending, in [0,
     n_er)) and ``gains`` f32 [T] are the ER kernel's nonzero taps, ``ir``
     f64 [n_ir]; all contiguous on one CUDA device; n_er >= 1, n_ir >= 1."""
-    T = offs.shape[0] if offs.dim() == 1 else -1
-    n_ir = ir.shape[0] if ir.dim() == 1 else -1
-    _scan_check("space_conv", (ir, offs, gains),
-                (torch.float64, torch.int32, torch.float32),
-                ((n_ir,), (T,), (T,)))
+    _check("space_conv", (ir, offs, gains), (_F64, _I32, _F32),
+           (1, 1, offs.shape))
+    T, n_ir = offs.shape[0], ir.shape[0]
     n_out = n_er + n_ir - 1
     if n_er < 1 or n_ir < 1 or n_out >= 2 ** 31:
         raise ValueError(f"space_conv kernel: ER {n_er} taps, IR {n_ir}")
     out = torch.empty(n_out, dtype=torch.float32, device=ir.device)
-    lib = _lib("space_conv")
-    with torch.cuda.device(ir.device):
-        stream = torch.cuda.current_stream(ir.device).cuda_stream
-        rc = lib.sc_launch(offs.data_ptr(), gains.data_ptr(), T,
-                           ir.data_ptr(), n_ir, out.data_ptr(), n_out,
-                           stream)
-    if rc != 0:
-        raise RuntimeError("space_conv kernel launch failed: "
-                           + lib.sc_error_string(rc).decode())
-    space_conv.launches += 1
+    _launch("space_conv", "space_conv", "sc_launch", ir.device,
+            offs.data_ptr(), gains.data_ptr(), T, ir.data_ptr(), n_ir,
+            out.data_ptr(), n_out)
     return out
-
-
-space_conv.launches = 0

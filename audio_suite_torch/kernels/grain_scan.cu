@@ -13,22 +13,21 @@
 // __fsub_rn, so nvcc contracts nothing into an FMA, and each op rounds
 // once in the JAX scan's order: the results are bit-equal to the plain
 // PyTorch loops beside the dispatchers in audio_suite_torch/ops/
-// generators.py (stick_slip_scan_plain, stick_slip_noise_scan_plain,
-// chaos_scan_plain, waveguide_scan_plain).  Comparisons are JAX's (<=, <).
+// generators.py (stick_slip_noise_scan_plain, chaos_scan_plain,
+// waveguide_scan_plain).  Comparisons are JAX's (<=, <).
 //
 // Bound on this card.  Bytes: the inputs read once and the output written
-// once, 12 bytes a sample for stick-slip from its rows (two f32 in, one
-// out), 4 for stick-slip drawing its own noise (xs out; the seeds
-// negligible), 8 for micro-chaos (its y0 negligible) and 8 a sample for
-// the waveguide (x in, y out, whatever its lines).  At the factory
-// settings (E 160 with padding, L 2 048) that is 3.9, 1.3, 2.6 and 2.6 MB,
-// ~1 us at 3.35 TB/s.  The dependency chain: stick-slip and micro-chaos
+// once, 4 bytes a sample for stick-slip, which draws its own noise (xs
+// out; the seeds negligible), 8 for micro-chaos (its y0 negligible) and 8
+// a sample for the waveguide (x in, y out, whatever its lines).  At the
+// factory settings (E 160 with padding, L 2 048) that is 1.3, 2.6 and 2.6
+// MB, ~1 us at 3.35 TB/s.  The dependency chain: stick-slip and micro-chaos
 // read the step before at every step, so their chain is L steps of a few
 // dependent f32 operations of 4 cycles (the force's add, compare and
 // select; the map's two multiplies): 8-12 us at 2 048 steps and 1 980 MHz,
 // 0.13-0.2 ms at 32 768.  The waveguide's v(t) reads v(t - d), so a line's
 // chain is only L / d links long, and its bytes govern.  Stick-slip
-// drawing its own noise also hashes: 24 murmur3 finalizers a sample (two
+// also hashes its noise: 24 murmur3 finalizers a sample (two
 // Irwin-Hall(12) normals), ~12.6 SASS instructions each (H100 build:
 // ~8.3 of them integer add, logic, shift and I2FP at 64 a clock an SM);
 // at config 3's width (E 288, L 32 768) 226.5 M hashes, ~0.11 ms spread
@@ -45,15 +44,14 @@
 // terms, and the last of a tile frees the tile's slot with one mbarrier
 // arrival; blocks go in pairs, one branch a pair.  The producers store a
 // freed tile's outputs (consecutive lanes on consecutive steps of a row:
-// coalesced) and refill it.  No block barrier sits in the chain.  Two
-// feeds fill the ring: from the rows bn, on (gs_stick_slip: cp.async
-// kSsLead tiles ahead, then the terms computed in place), or from the seeds
-// (gs_stick_slip_noise: both normals hashed in registers, bit-equal to
-// ops/noise.py's normal).  The host gives a block ceil(E / SMs) events (3
-// at E 288: 96 blocks, one an SM; 2 at the factory's 160), so each SM
-// hashes and steps a few events.  Measured (H100, chip_smoke.py): both
-// feeds run at one speed, ~23 cycles a step at 1 980 MHz, so the stepping
-// warp, not the producers, sets the time.  Each step issues ~8
+// coalesced) and refill it.  No block barrier sits in the chain.  The
+// producers make the terms from the seeds: both normals hashed in
+// registers, bit-equal to ops/noise.py's normal.  The host gives a block
+// ceil(E / SMs) events (3 at E 288: 96 blocks, one an SM; 2 at the
+// factory's 160), so each SM hashes and steps a few events.  Measured
+// (H100, chip_smoke.py): ~23 cycles a step at 1 980 MHz, as fast as with
+// the noise rows read from memory, so the stepping warp, not the
+// producers, sets the time.  Each step issues ~8
 // instructions of the integer pipe (compares to masks, selects, lop3),
 // which takes 2 cycles a warp instruction; other encodings of the step
 // (all predicates, a deferred reset, the back test as a sign) were no
@@ -151,8 +149,6 @@ __device__ __forceinline__ bool aligned16(const void* p) {
 constexpr int kSsK = 32;            // steps a register block
 constexpr int kSsTile = 128;        // steps a tile (an even count of blocks)
 constexpr int kSsStages = 8;        // tiles in the ring
-constexpr int kSsLead = 4;          // row feed: tiles of cp.async in flight
-//                                     ahead of the terms (<= kSsStages - 2)
 constexpr int kSsMaxRows = 8;       // events a block at most
 constexpr int kSsProducers = 3;     // producer warps
 constexpr int kSsThreads = (1 + kSsProducers) * kWarp;
@@ -162,9 +158,7 @@ constexpr uint32_t kM1 = 0x85EBCA6Bu;
 constexpr uint32_t kM2 = 0xC2B2AE35u;
 
 struct SsArgs {
-  const float* bn;          // the row feed: f32 [E, L] each
-  const float* on;
-  const int32_t* seed;      // the noise feed: [E]
+  const int32_t* seed;      // [E]
   float* xs;                // f32 [E, L]
   int E, L, rows;           // rows: events a block
   float thr, build, decay, nz;
@@ -181,8 +175,6 @@ constexpr size_t kSsHead = 2 * kSsStages * sizeof(uint64_t) +
                            kSsMaxRows * sizeof(uint32_t);
 static_assert(kSsHead % 16 == 0, "the tiles start 16-byte aligned");
 static_assert(kSsTile % (2 * kSsK) == 0 && kSsK % 4 == 0, "tile of blocks");
-static_assert(kSsLead <= kSsStages - 2, "the stepping warp waits a tile "
-              "ahead of the one it frees");
 
 inline size_t ss_smem_bytes(int rows) {
   return kSsHead +
@@ -340,10 +332,9 @@ __device__ __forceinline__ void ss_chain(float (&out)[kSsK],
 #undef SS_STEP
 
 // xs[e, t]: the stick-slip friction loop (generators.py:194-206) for the
-// events [e0, e0 + rows); its terms from the rows bn, on, or (kNoise) from
-// the counter noise of the seeds.  Warp 0 steps, warps 1 .. kSsProducers
-// fill the ring and store the outputs.
-template <bool kNoise>
+// events [e0, e0 + rows); its terms from the counter noise of the seeds.
+// Warp 0 steps, warps 1 .. kSsProducers fill the ring and store the
+// outputs.
 __global__ void __launch_bounds__(kSsThreads)
 stick_slip_kernel(const __grid_constant__ SsArgs args) {
   extern __shared__ __align__(16) unsigned char ss_smem[];
@@ -361,7 +352,7 @@ stick_slip_kernel(const __grid_constant__ SsArgs args) {
     mbar_init(&full[threadIdx.x], kSsProducers * kWarp);
     mbar_init(&empty[threadIdx.x], kWarp);
   }
-  if (kNoise && threadIdx.x < R)
+  if (threadIdx.x < R)
     skey[threadIdx.x] =
         (uint32_t)args.seed[min(e0 + (int)threadIdx.x, E - 1)] * kGolden;
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -422,53 +413,18 @@ stick_slip_kernel(const __grid_constant__ SsArgs args) {
         args.xs[(int64_t)(e0 + row) * L + t0 + c] = src[row * kSsPitch + c];
     }
   };
-  if constexpr (kNoise) {
-    for (int i = 0; i < nt; ++i) {
-      const int s = i % kSsStages, t0 = i * kSsTile;
-      if (i >= kSsStages) store(i - kSsStages);
-      for (int q = p; q < n; q += NP) {
-        const int row = q / kSsTile, c = q % kSsTile;
-        const uint32_t key = skey[row] + (uint32_t)(t0 + c) * kM1;
-        float a, o;
-        ss_terms(args, ss_normal(key, args.cb), ss_normal(key, args.co), a,
-                 o);
-        ta[s * stage + row * kSsPitch + c] = a;
-        to[s * stage + row * kSsPitch + c] = o;
-      }
-      mbar_arrive(&full[s]);
+  for (int i = 0; i < nt; ++i) {
+    const int s = i % kSsStages, t0 = i * kSsTile;
+    if (i >= kSsStages) store(i - kSsStages);
+    for (int q = p; q < n; q += NP) {
+      const int row = q / kSsTile, c = q % kSsTile;
+      const uint32_t key = skey[row] + (uint32_t)(t0 + c) * kM1;
+      float a, o;
+      ss_terms(args, ss_normal(key, args.cb), ss_normal(key, args.co), a, o);
+      ta[s * stage + row * kSsPitch + c] = a;
+      to[s * stage + row * kSsPitch + c] = o;
     }
-  } else {
-    // the rows kSsLead tiles ahead by cp.async (one commit group a tile),
-    // each thread then turning its own samples into the terms in place
-    for (int i = 0; i < nt + kSsLead; ++i) {
-      if (i < nt) {
-        const int s = i % kSsStages, t0 = i * kSsTile;
-        if (i >= kSsStages) store(i - kSsStages);
-        for (int q = p; q < n; q += NP) {
-          const int row = q / kSsTile, c = q % kSsTile;
-          if (t0 + c < L) {
-            const int64_t g = (int64_t)min(e0 + row, E - 1) * L + t0 + c;
-            cp_async4(ta + s * stage + row * kSsPitch + c, args.bn + g);
-            cp_async4(to + s * stage + row * kSsPitch + c, args.on + g);
-          }
-        }
-      }
-      asm volatile("cp.async.commit_group;\n" ::: "memory");
-      if (i >= kSsLead) {
-        asm volatile("cp.async.wait_group %0;\n" :: "n"(kSsLead) : "memory");
-        const int j = i - kSsLead, s = j % kSsStages, t0 = j * kSsTile;
-        for (int q = p; q < n; q += NP) {
-          const int row = q / kSsTile, c = q % kSsTile;
-          float* pa = ta + s * stage + row * kSsPitch + c;
-          float* po = to + s * stage + row * kSsPitch + c;
-          float a = 0.0f, o = 0.0f;     // past L: stepped, never stored
-          if (t0 + c < L) ss_terms(args, *pa, *po, a, o);
-          *pa = a;
-          *po = o;
-        }
-        mbar_arrive(&full[s]);
-      }
-    }
+    mbar_arrive(&full[s]);
   }
   for (int j = max(0, nt - kSsStages); j < nt; ++j) store(j);
 }
@@ -762,8 +718,8 @@ float ss_back_limit(float decay) {
 }
 
 // One stick-slip launch: ceil(E / SMs) events a block, at most kSsMaxRows,
-// so that every SM hashes (the noise feed) and steps a few events.
-cudaError_t ss_launch(SsArgs args, bool noise, cudaStream_t stream) {
+// so that every SM hashes and steps a few events.
+cudaError_t ss_launch(SsArgs args, cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -772,12 +728,10 @@ cudaError_t ss_launch(SsArgs args, bool noise, cudaStream_t stream) {
   args.rows = std::min(kSsMaxRows, std::max(1, (args.E + sms - 1) / sms));
   args.back = ss_back_limit(args.decay);
   const size_t bytes = ss_smem_bytes(args.rows);
-  void (*kernel)(const SsArgs) =
-      noise ? stick_slip_kernel<true> : stick_slip_kernel<false>;
-  err = allow_smem(kernel, bytes);
+  err = allow_smem(stick_slip_kernel, bytes);
   if (err != cudaSuccess) return err;
-  kernel<<<(unsigned)((args.E + args.rows - 1) / args.rows), kSsThreads,
-           bytes, stream>>>(args);
+  stick_slip_kernel<<<(unsigned)((args.E + args.rows - 1) / args.rows),
+                      kSsThreads, bytes, stream>>>(args);
   return cudaGetLastError();
 }
 
@@ -787,15 +741,6 @@ cudaError_t ss_launch(SsArgs args, bool noise, cudaStream_t stream) {
 // (0 on success).  Pointers are device pointers to contiguous row-major
 // arrays; E > 0, L > 0.
 
-// bn, on, xs: f32 [E, L].
-extern "C" int gs_stick_slip(const float* bn, const float* on, float* xs,
-                             int E, int L, float thr, float build,
-                             float decay, float nz, void* stream) {
-  SsArgs args = {bn, on, nullptr, xs, E, L, 0, thr, build, decay, nz, 0.0f,
-                 {}, {}};
-  return (int)ss_launch(args, false, (cudaStream_t)stream);
-}
-
 // seed: i32 [E] (as uint32); xs: f32 [E, L].  The noise rows are
 // ops/noise.py's normal(seed, t, stream_build) and normal(seed, t,
 // stream_out) for t in [0, L).
@@ -803,13 +748,12 @@ extern "C" int gs_stick_slip_noise(const int32_t* seed, float* xs, int E,
                                    int L, float thr, float build, float decay,
                                    float nz, unsigned stream_build,
                                    unsigned stream_out, void* stream) {
-  SsArgs args = {nullptr, nullptr, seed, xs, E, L, 0, thr, build, decay, nz,
-                 0.0f, {}, {}};
+  SsArgs args = {seed, xs, E, L, 0, thr, build, decay, nz, 0.0f, {}, {}};
   for (unsigned j = 0; j < 12; ++j) {
     args.cb[j] = (stream_build * 12u + j + 1u) * kM2;
     args.co[j] = (stream_out * 12u + j + 1u) * kM2;
   }
-  return (int)ss_launch(args, true, (cudaStream_t)stream);
+  return (int)ss_launch(args, (cudaStream_t)stream);
 }
 
 // gates, xs: f32 [E, L]; y0: f32 [E].

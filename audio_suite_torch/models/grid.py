@@ -29,7 +29,6 @@ import inspect
 import json
 import math
 import os
-from collections import OrderedDict
 from dataclasses import asdict, dataclass, field
 from typing import Any, Dict, List, Optional
 
@@ -40,7 +39,7 @@ from ..ops import envdet, fixq
 from ..plugins.host import load_py_module
 from ..utils import io as audio_io
 from ..utils import native_rt
-from ..utils.device import canonical_device
+from ..utils.memo import Memo
 
 DEFAULT_DIVISION_SNIPPET = "def divisions(total):\n    return [total/16.0]*16\n"
 
@@ -641,23 +640,17 @@ def _host_mixdown(n_total: int, rows: list, return_tracks: bool):
     return (mix, placed_tracks) if return_tracks else (mix, None)
 
 
-_BANK_CACHE: OrderedDict = OrderedDict()
+_BANK_CACHE = Memo(8)
 
 
 def _bank_device_cached(flat_pat: np.ndarray, device) -> torch.Tensor:
     """The pattern bank on ``device``, cached on (content hash, device):
     re-renders of an unchanged project upload nothing.  Bounded at 8
     banks, least recently used evicted."""
-    device = torch.device(device)
-    key = (hashlib.blake2b(flat_pat.view(np.uint8), digest_size=16).digest(),
-           str(device))
-    dev = _BANK_CACHE.pop(key, None)
-    if dev is None:
-        dev = torch.as_tensor(flat_pat, device=device)
-    _BANK_CACHE[key] = dev
-    while len(_BANK_CACHE) > 8:
-        _BANK_CACHE.popitem(last=False)
-    return dev
+    key = hashlib.blake2b(flat_pat.view(np.uint8), digest_size=16).digest()
+    return _BANK_CACHE.get(
+        key, lambda: torch.as_tensor(flat_pat, device=device),
+        device=device)[0]
 
 
 @dataclass(frozen=True)
@@ -710,7 +703,7 @@ def _device_mixdown(n_total: int, rows: list, device_out: bool = False,
     return y.cpu().numpy()
 
 
-_PROGRAM_CACHE: OrderedDict = OrderedDict()
+_PROGRAM_CACHE = Memo(4)
 
 
 def _project_cache_key(project: GridProject) -> bytes:
@@ -738,15 +731,11 @@ def build_mix_program_cached(project: GridProject, device="cuda") -> dict:
     the key because the cells run on it (``context["device"]``): a
     program whose cells ran on one device never serves a render on
     another, so each device a project renders on pays one host build."""
-    key = (_project_cache_key(project), canonical_device(device))
-    entry = _PROGRAM_CACHE.pop(key, None)
-    if entry is None:
+    def build():
         n_total, rows = _build_mix_program(project, device)
-        entry = {"n_total": n_total, "rows": rows, "prep": {}}
-    _PROGRAM_CACHE[key] = entry
-    while len(_PROGRAM_CACHE) > 4:
-        _PROGRAM_CACHE.popitem(last=False)
-    return entry
+        return {"n_total": n_total, "rows": rows, "prep": {}}
+    return _PROGRAM_CACHE.get(_project_cache_key(project), build,
+                              device=device)[0]
 
 
 def render_mixdown(project: GridProject, return_tracks: bool = False,

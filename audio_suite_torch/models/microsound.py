@@ -30,13 +30,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import kernels
 from ..events.schedulers import generate_event_times
 from ..ops import (detmath, envelopes, exact_dft, generators, overlap_add,
                    space, spectral)
 from ..utils.breakpoints import (eval_breakpoints, eval_breakpoints_vec,
                                 parse_breakpoints)
 from ..utils.device import canonical_device
+from ..utils.memo import Memo
 from ..utils.profiling import span
 
 GEN_MODES = (
@@ -1016,7 +1016,7 @@ def program_to_device(prog: dict, device) -> dict:
             else v for k, v in prog.items()}
 
 
-_SPACE_KERNEL_CACHE: dict = {}
+_SPACE_KERNEL_CACHE = Memo(8)
 
 
 def _space_ir(p: MicrosoundParams, ir_audio) -> np.ndarray | None:
@@ -1037,13 +1037,10 @@ def _space_kernels(p: MicrosoundParams, ir_audio, device="cuda"):
     """ER tap kernel, IR kernel and, by convolution associativity, their
     combined form (microsound.py:1084) — memoized on the ER parameters,
     the IR's digest and the device, since parameter sweeps re-render with
-    one space setup.  On the CPU they are NumPy arrays and the combined
-    kernel is the f64 host np.convolve; on a CUDA device they are tensors
-    on it, and the combined kernel is one launch of
-    ``kernels/space_conv.cu`` over the ER kernel's nonzero taps and the
-    f64 IR, both sent in one copy (the same f64 sum, rounded once to
-    f32).  The convolution runs only where the ER cloud and the IR are
-    both on; the span's ``launched`` says whether the kernel ran."""
+    one space setup.  On the CPU they are NumPy arrays, on a CUDA device
+    tensors on it; the combined kernel is ``space.er_ir_kernels``'s, made
+    only where the ER cloud and the IR are both on.  The span's
+    ``launched`` says whether that ran its kernel on a card."""
     dev = canonical_device(device)
     with span("microsound.space_kernels") as sp:
         irm = _space_ir(p, ir_audio)
@@ -1051,35 +1048,27 @@ def _space_kernels(p: MicrosoundParams, ir_audio, device="cuda"):
         key = (bool(p.er_cloud_on), int(p.er_taps), float(p.er_max_ms),
                int(p.base_sr), int(p.seed),
                hashlib.blake2b(irm.tobytes(), digest_size=16).digest()
-               if ir_on else None, dev)
-        hit = _SPACE_KERNEL_CACHE.get(key)
-        sp.set(hit=hit is not None, launched=False)
-        if hit is not None:
-            return hit
+               if ir_on else None)
+        sp.set(launched=False)
 
-        er_kernel = np.zeros(2, np.float32)
-        if p.er_cloud_on:
-            er_kernel = space.er_tap_kernel(int(p.er_taps),
-                                            float(p.er_max_ms),
-                                            int(p.base_sr), int(p.seed))
-        if dev.type != "cpu" and p.er_cloud_on and ir_on:
-            offs, gains, ir64 = space.space_conv_inputs(er_kernel, irm, dev)
-            out = (kernels.space_conv(offs, gains, ir64, er_kernel.size),
-                   ir64.float(), ir_on)
-            sp.set(launched=True)
-        else:
+        def build():
+            er_kernel = np.zeros(2, np.float32)
+            if p.er_cloud_on:
+                er_kernel = space.er_tap_kernel(int(p.er_taps),
+                                                float(p.er_max_ms),
+                                                int(p.base_sr), int(p.seed))
+            if p.er_cloud_on and ir_on:
+                sp.set(launched=dev.type != "cpu")
+                return (*space.er_ir_kernels(er_kernel, irm, dev), ir_on)
             ir_kernel = (irm.astype(np.float32) if ir_on
                          else np.zeros(2, np.float32))
-            if p.er_cloud_on and ir_on:
-                er_kernel = np.convolve(er_kernel.astype(np.float64),
-                                        irm).astype(np.float32)
-            out = (er_kernel, ir_kernel, ir_on)
-            if dev.type != "cpu":
-                out = (torch.from_numpy(er_kernel).to(dev),
-                       torch.from_numpy(ir_kernel).to(dev), ir_on)
-        if len(_SPACE_KERNEL_CACHE) >= 8:
-            _SPACE_KERNEL_CACHE.pop(next(iter(_SPACE_KERNEL_CACHE)))
-        _SPACE_KERNEL_CACHE[key] = out
+            if dev.type == "cpu":
+                return er_kernel, ir_kernel, ir_on
+            return (torch.from_numpy(er_kernel).to(dev),
+                    torch.from_numpy(ir_kernel).to(dev), ir_on)
+
+        out, hit = _SPACE_KERNEL_CACHE.get(key, build, device=dev)
+        sp.set(hit=hit)
         return out
 
 

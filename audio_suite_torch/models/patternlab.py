@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from collections import OrderedDict
 from dataclasses import dataclass
 from pathlib import Path
 from typing import NamedTuple
@@ -35,6 +34,7 @@ from ..events.notes import (NoteEvent, RenderConfig, apply_time_ops,
 from ..ops import envelopes, overlap_add
 from ..ops import synth as synth_ops
 from ..utils import music
+from ..utils.memo import Memo
 from ..utils.profiling import span
 
 YM2612_DAC_BITS = 14     # app/constants.py
@@ -704,7 +704,17 @@ def _render_dispatch(sr: int, fade: int, lp1: float, lp2: float,
         return y
 
 
-_RENDER_CACHE: OrderedDict = OrderedDict()
+_RENDER_CACHE = Memo(8)
+
+
+def _program(events, cfg: RenderConfig, fm_channels, psg_channels, device):
+    """A render's host pre-pass, time-ops -> synth -> prepare: (the events
+    after time-ops, the synth, its prepared render)."""
+    ev = apply_time_ops(events, cfg)
+    s = MegaDriveInspiredSynth(cfg.sample_rate, seed=cfg.seed,
+                               fm_channels=fm_channels,
+                               psg_channels=psg_channels, device=device)
+    return ev, s, s.prepare(ev, cfg.seconds)
 
 
 def render(events, cfg: RenderConfig, fm_channels=None, psg_channels=None,
@@ -718,39 +728,24 @@ def render(events, cfg: RenderConfig, fm_channels=None, psg_channels=None,
     between renders (regenerate instead).  master_gain is applied at
     render time, not baked into the program."""
     with span("patternlab.render") as sp:
-        key = (id(events), id(fm_channels), id(psg_channels),
-               json.dumps(dataclasses.asdict(cfg), sort_keys=True,
-                          default=str),
-               str(torch.device(device)))
-        ent = _RENDER_CACHE.pop(key, None)
-        hit = ent is not None and ent["events"] is events
+        key = json.dumps(dataclasses.asdict(cfg), sort_keys=True,
+                         default=str)
+        (ev, s, prep), hit = _RENDER_CACHE.get(
+            key, lambda: _program(events, cfg, fm_channels, psg_channels,
+                                  device),
+            device=device, pins=(events, fm_channels, psg_channels))
         sp.set(memo_hit=hit)
-        if not hit:
-            ev = apply_time_ops(events, cfg)
-            s = MegaDriveInspiredSynth(cfg.sample_rate, seed=cfg.seed,
-                                       fm_channels=fm_channels,
-                                       psg_channels=psg_channels,
-                                       device=device)
-            ent = {"events": events, "ev": ev, "synth": s,
-                   "prep": s.prepare(ev, cfg.seconds)}
-        _RENDER_CACHE[key] = ent
-        while len(_RENDER_CACHE) > 8:
-            _RENDER_CACHE.popitem(last=False)
-        y = ent["synth"].render_prepared(ent["prep"],
-                                         master_gain=cfg.master_gain,
-                                         pcm16=pcm16)
-        return y, ent["ev"]
+        y = s.render_prepared(prep, master_gain=cfg.master_gain,
+                              pcm16=pcm16)
+        return y, ev
 
 
 def render_device(events, cfg: RenderConfig, fm_channels=None,
                   psg_channels=None, device="cuda"):
     """render() with the output left on the device (no memo)."""
-    ev = apply_time_ops(events, cfg)
-    s = MegaDriveInspiredSynth(cfg.sample_rate, seed=cfg.seed,
-                               fm_channels=fm_channels,
-                               psg_channels=psg_channels, device=device)
-    return s.render(ev, seconds=cfg.seconds, master_gain=cfg.master_gain,
-                    device_out=True)
+    _, s, prep = _program(events, cfg, fm_channels, psg_channels, device)
+    return s.render_prepared(prep, master_gain=cfg.master_gain,
+                             device_out=True)
 
 
 # ----------------------------------------------------------------------------

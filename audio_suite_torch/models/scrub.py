@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Optional
 
@@ -43,6 +42,8 @@ import torch
 from ..ops import detmath, fixq, noise
 from ..ops.fixq import round_sig12, round_sig12_np
 from ..ops.lerp_read import scrub_read
+from ..utils.device import canonical_device
+from ..utils.memo import Memo
 
 # Config constants (scrubber_0.7.py:35-75)
 DEFAULT_HEAD_OFFSETS = (-2000.0, 0.0, 2000.0)
@@ -560,7 +561,7 @@ def device_program(prog: dict, device="cuda") -> dict:
     """The program's tape and block-rate arrays as tensors on ``device``,
     copied once and memoized on the program (a tape tensor already there
     is used as is)."""
-    key = str(torch.device(device))
+    key = canonical_device(device)
     memo = prog.setdefault("_device", {})
     dp = memo.get(key)
     if dp is None:
@@ -578,7 +579,7 @@ def device_program(prog: dict, device="cuda") -> dict:
     return dp
 
 
-_SCRUB_PROG_CACHE: OrderedDict = OrderedDict()
+_SCRUB_PROG_CACHE = Memo(8)
 
 
 def build_scrub_program_cached(audio, cfg: ScrubConfig, trace: GestureTrace,
@@ -588,17 +589,11 @@ def build_scrub_program_cached(audio, cfg: ScrubConfig, trace: GestureTrace,
     unchanged gesture skip the host expansion and, through
     ``device_program``, the upload.  Reuse the same audio and trace
     objects across renders."""
-    key = (id(audio), id(trace), float(tape_pos0),
+    key = (float(tape_pos0),
            json.dumps(dataclasses.asdict(cfg), sort_keys=True, default=str))
-    ent = _SCRUB_PROG_CACHE.pop(key, None)
-    if ent is not None and ent["audio"] is audio and ent["trace"] is trace:
-        _SCRUB_PROG_CACHE[key] = ent
-        return ent["prog"]
-    prog = build_scrub_program(audio, cfg, trace, tape_pos0)
-    _SCRUB_PROG_CACHE[key] = {"audio": audio, "trace": trace, "prog": prog}
-    while len(_SCRUB_PROG_CACHE) > 8:
-        _SCRUB_PROG_CACHE.popitem(last=False)
-    return prog
+    return _SCRUB_PROG_CACHE.get(
+        key, lambda: build_scrub_program(audio, cfg, trace, tape_pos0),
+        pins=(audio, trace))[0]
 
 
 def program_span(prog: dict) -> int:

@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -41,6 +40,7 @@ from ..ops import detmath, fixq, varispeed
 from ..ops.varispeed import TapeConsts
 from ..utils import io as audio_io
 from ..utils import native_rt
+from ..utils.memo import Memo
 from ..utils.profiling import span
 
 
@@ -287,7 +287,7 @@ def build_tape_program(audio, params: TapeParams, num_frames: int, *,
     return prog
 
 
-_TAPE_PROG_CACHE: OrderedDict = OrderedDict()
+_TAPE_PROG_CACHE = Memo(8)
 
 
 def build_tape_program_cached(audio, params: TapeParams, num_frames: int, *,
@@ -304,19 +304,15 @@ def _cached_program(audio, params: TapeParams, num_frames: int, device):
     """``build_tape_program_cached``'s program and whether the memo served
     it, in the ``tape.build`` span."""
     with span("tape.build") as sp:
-        key = (id(audio), str(torch.device(device)), int(num_frames),
+        key = (int(num_frames),
                json.dumps(dataclasses.asdict(params), sort_keys=True,
                           default=str))
-        ent = _TAPE_PROG_CACHE.pop(key, None)
-        hit = ent is not None and ent["audio"] is audio
+        prog, hit = _TAPE_PROG_CACHE.get(
+            key, lambda: build_tape_program(audio, params, num_frames,
+                                            device=device),
+            device=device, pins=(audio,))
         sp.set(hit=hit)
-        if not hit:
-            ent = {"audio": audio, "prog": build_tape_program(
-                audio, params, num_frames, device=device)}
-        _TAPE_PROG_CACHE[key] = ent
-        while len(_TAPE_PROG_CACHE) > 8:
-            _TAPE_PROG_CACHE.popitem(last=False)
-        return ent["prog"], hit
+        return prog, hit
 
 
 def program_tables(prog: dict) -> dict:

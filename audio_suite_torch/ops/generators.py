@@ -13,9 +13,9 @@ PyTorch version, a loop over t on [E] tensors (``*_scan_plain``), and a
 dispatcher (``*_scan``) that runs the plain version for tensors on the CPU
 and the hand-written CUDA kernel (``kernels/grain_scan.cu``) for tensors on
 the card; both round every op once, so they are bit-equal.  Stick-slip's
-generator goes through ``stick_slip_noise_scan``, whose kernel also draws
-the recurrence's two counter-noise rows itself, bit-equal to
-``noise.normal``.
+dispatcher is ``stick_slip_noise_scan``, whose kernel also draws the
+recurrence's two counter-noise rows itself, bit-equal to ``noise.normal``;
+its plain version draws the rows and runs ``stick_slip_scan_plain``.
 
 Scatter-adds whose targets can repeat (crackle's spikes) add in a fixed
 order, one scatter per rank of a repeated target (``ordered_scatter_add``),
@@ -344,16 +344,6 @@ def waveguide_scan_plain(x: torch.Tensor, d: torch.Tensor, g: torch.Tensor,
             out[:, t] = keep * yt + ml * v
         y = out
     return y
-
-
-def stick_slip_scan(bn, on, threshold, build, decay, noise_amt):
-    """``stick_slip_scan_plain`` for CPU tensors; on the card the
-    ``grain_scan.cu`` kernel (a failed build or launch raises)."""
-    if bn.device.type == "cpu":
-        return stick_slip_scan_plain(bn, on, threshold, build, decay,
-                                     noise_amt)
-    return kernels.stick_slip_scan(bn, on, _f32(threshold), _f32(build),
-                                   _f32(decay), _f32(noise_amt))
 
 
 def stick_slip_noise_scan(seed, L, threshold, build, decay, noise_amt):

@@ -1,9 +1,10 @@
 """Space FX — port of audio_suite_tpu/ops/space.py: partitioned FFT
 convolution, the early-reflection tap kernel and the Jacobi-Anger stereo
 diffusion (host NumPy parts are ported too, since the JAX module imports
-jax), soft clip and normalize; and the plain ER (x) IR from the ER
-kernel's nonzero taps, which ``kernels/space_conv.cu`` computes on a
-CUDA device.
+jax), soft clip and normalize; and the combined ER (x) IR kernel,
+``er_ir_kernels``: the host ``np.convolve`` on the CPU, on a CUDA device
+``kernels/space_conv.cu``, held against the plain sum from the ER kernel's
+nonzero taps.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import kernels
 from . import detmath, exact_dft
 
 
@@ -81,6 +83,21 @@ def space_conv_inputs(er_kernel: np.ndarray, ir: np.ndarray, device
     buf = torch.from_numpy(packed).to(device)
     return (buf[n:n + offs.size], buf[n + offs.size:].view(torch.float32),
             buf[:n].view(torch.float64))
+
+
+def er_ir_kernels(er_kernel: np.ndarray, ir: np.ndarray, device):
+    """The combined space kernel ER (x) IR, np.convolve(er_kernel, ir) in
+    f64 rounded once to f32, and the IR kernel, ``ir`` in f32, on
+    ``device``: on the CPU NumPy arrays and the host np.convolve; on a
+    card tensors there, the f64 IR and the ER kernel's nonzero taps sent
+    in one copy (``space_conv_inputs``), one launch of
+    ``kernels.space_conv`` (the same f64 sum, rounded once) and the f32
+    IR cast there."""
+    if torch.device(device).type == "cpu":
+        return (np.convolve(er_kernel.astype(np.float64), ir)
+                .astype(np.float32), ir.astype(np.float32))
+    offs, gains, ir64 = space_conv_inputs(er_kernel, ir, device)
+    return kernels.space_conv(offs, gains, ir64, er_kernel.size), ir64.float()
 
 
 def er_ir_convolve_plain(offs: torch.Tensor, gains: torch.Tensor,

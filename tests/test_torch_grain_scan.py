@@ -229,14 +229,14 @@ def test_stick_slip_noise_plain_is_the_draws_and_the_row_form(E, L):
 
 def test_gen_stick_slip_on_the_cpu_renders_as_from_the_rows():
     """The generator as it was before it drew through the dispatcher: the
-    two rows, the row form, the Hann window and the mask."""
+    two rows, the plain recurrence, the Hann window and the mask."""
     L = 2048
     seed = torch.tensor(np.resize(_SS_SEEDS, 9))
     n = torch.tensor([1500, 1, 2, 2048, 700, 1500, 1024, 3, 1999])
     i = torch.arange(L)
     bn = noise.normal(seed[:, None], i, generators.STREAM_BUILD)
     on = noise.normal(seed[:, None], i, generators.STREAM_OUT)
-    xs = generators.stick_slip_scan(bn, on, *_SS_ARGS)
+    xs = generators.stick_slip_scan_plain(bn, on, *_SS_ARGS)
     want = torch.where(i < n[:, None], xs * generators.hann_t(i, n[:, None]),
                        0.0)
     got = generators.gen_stick_slip(i, n, seed, *_SS_ARGS)

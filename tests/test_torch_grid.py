@@ -479,7 +479,7 @@ def test_program_memo_keys_on_the_device(tmp_path, monkeypatch):
         built.append(str(device))
         return build(project, "cpu")
 
-    monkeypatch.setattr(tg, "_PROGRAM_CACHE", type(tg._PROGRAM_CACHE)())
+    tg._PROGRAM_CACHE.clear()
     with monkeypatch.context() as m:
         m.setattr(tg, "_build_mix_program", spy)
         cpu = tg.build_mix_program_cached(pt, "cpu")
@@ -509,7 +509,7 @@ def test_cells_see_each_render_device(tmp_path, monkeypatch):
     project = tg.GridProject(tracks=[t],
                              master=tg.MasterClock("fixed_seconds", 1.0),
                              sample_rate=SR)
-    monkeypatch.setattr(tg, "_PROGRAM_CACHE", type(tg._PROGRAM_CACHE)())
+    tg._PROGRAM_CACHE.clear()
     for device in ("cuda", "cpu", "cuda:0", "cpu"):
         tg.build_mix_program_cached(project, device)
     assert log.read_text().split() == ["cuda", "cpu"]

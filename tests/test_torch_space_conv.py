@@ -83,8 +83,8 @@ def _host(p: ms.MicrosoundParams, ir_audio) -> np.ndarray:
 
 
 @pytest.fixture(autouse=True)
-def _fresh_memos(monkeypatch):
-    monkeypatch.setattr(ms, "_SPACE_KERNEL_CACHE", {})
+def _fresh_memos():
+    ms._SPACE_KERNEL_CACHE.clear()
     yield
     prof.disable()
     prof.reset()

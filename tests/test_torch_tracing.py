@@ -177,8 +177,8 @@ def test_patternlab_spans_and_memo_hit():
     assert all(r.parent is None for r in gens)
 
 
-def test_space_kernels_hit_is_false_then_true(monkeypatch):
-    monkeypatch.setattr(ms, "_SPACE_KERNEL_CACHE", {})
+def test_space_kernels_hit_is_false_then_true():
+    ms._SPACE_KERNEL_CACHE.clear()
     prof.enable()
     p = _ms_params(seed=21)
     first = ms._space_kernels(p, IR, device="cpu")
