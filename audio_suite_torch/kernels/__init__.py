@@ -129,6 +129,14 @@ _SIGNATURES = {
                        _P], ctypes.c_int),
         "ts_scratch_words": ([ctypes.c_longlong, ctypes.c_int, ctypes.c_int],
                              ctypes.c_longlong),
+        "ts_tables_launch": ([_P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_int, ctypes.c_longlong, _P, _P, _P,
+                              ctypes.c_int, ctypes.c_int, _P, _P, _P],
+                             ctypes.c_int),
+        "ts_tables_scratch_words": ([ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_int],
+                                    ctypes.c_longlong),
         "ts_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
     "space_conv": {
@@ -142,6 +150,8 @@ TAPE_SCAN_CHUNK = 1024  # tape_scan.cu's steps a chunk: a power of two in
 TAPE_SCAN_CHUNKS = (32, 4096)  # this range (kMinChunk, kMaxChunk)
 TAPE_SCAN_REC_WORDS = 8  # a chunk's record (kRecWords); bit 0 of word 5:
 #                          jumped
+TAPE_TABLES_HEAD = 16    # tape_scan.cu's kTabHead: the tables' header words
+TAPE_TABLES_TILE = 512   # kTabThreads: the walk's block, a window's round
 MAX_HEADS = 3           # scrub_read_kernel's head slots (lerp_read.cu)
 VOICE_BANK_MAX_TAPS = 64  # a one-pole lowpass of fewer taps is a truncated
 #                           FIR (ops/synth.py:_fir_len), others the doubling
@@ -559,6 +569,54 @@ def tape_scan(audio: torch.Tensor, mod_q: torch.Tensor, starts: torch.Tensor,
     w = TAPE_SCAN_REC_WORDS
     return (out, fin, scratch[:w * nch].view(nch, w),
             scratch[w * nch:w * nch + 1])
+
+
+@_counted
+def tape_tables(packed: torch.Tensor, S: int, B: int, R: int, T: int, n: int,
+                env_len: int, splice_on: bool, s_init: int,
+                mod_ints: np.ndarray, mod_flts: np.ndarray,
+                coeffs: np.ndarray, chunk: int, cap: int) -> torch.Tensor:
+    """Launch ``tape_scan.cu``'s table walk (the chunk sums, the one-block
+    walk) on the current stream and return its new output int32
+    [TAPE_TABLES_HEAD + 8 cap]: the counts of visits, runs and triggers,
+    whether one passed ``cap``, the final whole, frac, speed integer,
+    splice rem and index (int64 each from word 4), the walked and jumped
+    chunks, then the records packed (``ops/varispeed.py:
+    tape_tables_on_card`` reads them).  ``packed`` int32 (contiguous, on a
+    CUDA device): the S sections' starts, ends, reverse and speed rows,
+    the B boundaries, the R rows' f32 speeds and integers
+    (``varispeed.tables_kernel_args``); ``s_init`` the initial speed's
+    fixed-point integer; the wow/flutter constants ``mod_ints`` uint32
+    [4], ``mod_flts`` f32 [6] (inverse periods, depths, start phases) and
+    the sine's ``coeffs`` f32 [10] on the host; ``chunk`` a power of two
+    in TAPE_SCAN_CHUNKS; T < 2**31."""
+    _check("tape_tables", (packed,), (_I32,), (1,))
+    lo, hi = TAPE_SCAN_CHUNKS
+    if not (lo <= chunk <= hi and chunk & (chunk - 1) == 0):
+        raise ValueError(f"tape_tables kernel: chunk {chunk} (a power of "
+                         f"two in [{lo}, {hi}])")
+    if not (1 <= R <= S and B >= 0 and 0 <= T < 2 ** 31 and 0 < n < 2 ** 31
+            and cap >= 1 and packed.shape[0] >= 4 * S + B + 2 * R):
+        raise ValueError(f"tape_tables kernel: S {S}, B {B}, R {R}, T {T}, "
+                         f"n {n}, cap {cap}, {packed.shape[0]} input words")
+    consts = [np.ascontiguousarray(a, dt) for a, dt in
+              ((mod_ints, np.uint32), (mod_flts, np.float32),
+               (coeffs, np.float32))]
+    if [c.size for c in consts] != [4, 6, 10]:
+        raise ValueError("tape_tables kernel: wants 4 ints, 6 floats and "
+                         "10 coefficients")
+    dev = packed.device
+    lib = _lib("tape_scan")
+    scratch = torch.empty(lib.ts_tables_scratch_words(T, R, chunk, cap),
+                          dtype=torch.int32, device=dev)
+    out = torch.empty(TAPE_TABLES_HEAD + 8 * cap, dtype=torch.int32,
+                      device=dev)
+    _launch("tape_tables", "tape_scan", "ts_tables_launch", dev,
+            packed.data_ptr(), S, B, R, T, n, int(env_len),
+            int(bool(splice_on)), int(s_init), consts[0].ctypes.data,
+            consts[1].ctypes.data, consts[2].ctypes.data, int(chunk),
+            int(cap), scratch.data_ptr(), out.data_ptr())
+    return out
 
 
 @_counted

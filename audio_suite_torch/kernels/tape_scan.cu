@@ -88,6 +88,38 @@
 // speed's update step after step (six dependent f32 operations).  Where
 // the speed in force is no section's own (inertia frozen off its target)
 // the walk sums the chunks itself, at one SM's share of the memory rate.
+//
+// The control tables (ts_tables_launch).  The device engine renders from
+// compact tables (visits, constant speed runs, splice triggers) that the
+// C++ walk ast_tape_tables (native/ast_runtime.cpp) builds on the host by
+// taking one thread through every output sample.  With inertia off a
+// visit's speed is its section's, so the walk is a search: a visit ends at
+// the first sample whose increments' prefix reaches the section's end,
+// and a splice trigger lies in the few samples where the read index can
+// equal a boundary.  The same chunks answer both:
+//
+// - tables_sums_kernel (the whole card): one warp a chunk computes each
+//   sample's wow/flutter modulation in registers (the C++'s expression,
+//   each f32 operation rounded once) and sums the int64 increments at the
+//   speed of each of the first kTableRows distinct section speeds.
+//   Nothing of size T is written.
+// - tables_walk_kernel (one block, every thread holding the same state):
+//   for each visit the section and its distance to the section's end,
+//   then seek(): the chunks' sums, kTabThreads at a time and scanned,
+//   find the chunk where the prefix reaches the distance (a speed with no
+//   row sums its chunks itself), and that chunk's increments, recomputed
+//   and scanned, the exact sample.  With the splice on, each boundary
+//   the visit can reach, in time order, gets its window by the same
+//   search and the C++'s per-sample rule inside it.  The records are
+//   capped at a capacity and counted past it (the caller retries with
+//   room), then packed after a header.
+//
+// Its bound is the sums' operations: 39 f32 operations a sample for the
+// modulation (each sine needs its quadrant's one polynomial; sin_cycles
+// computes both and selects, 57 in all) and 3 a speed.  The walk is a
+// chain of block-wide scans, a few a visit and a window, each a few
+// barriers long.  The decisions are
+// the C++ walk's integers, held bit-equal in the tests.
 #include <climits>
 #include <cstdint>
 
@@ -999,6 +1031,550 @@ cudaError_t launch(const float* audio, const float* mod_q, long long T,
   return cudaGetLastError();
 }
 
+// ---- the control tables (ts_tables_launch) --------------------------------
+
+constexpr int kTabThreads = kWalkWarps * 32;       // the walk's block
+constexpr int kTabPer = kMaxChunk / kTabThreads;   // a chunk's steps a thread
+constexpr int kTabHead = 16;                       // the output's header words
+
+// The wow/flutter curve's constants (models/tape.py:wow_flutter_consts):
+// the phase residues' ratios and their steps of 1 and 32 samples, the
+// inverse periods, depths and start phases, the sine's coefficients.
+struct ModConsts {
+  unsigned wn, wm, fn, fm, ws1, fs1, ws32, fs32;
+  float winv, finv, wd, fd, p0w, p0f;
+  float sc[5], cc[5];
+};
+
+__device__ __forceinline__ unsigned residue(long long j, unsigned num,
+                                            unsigned m) {
+  return (unsigned)(((unsigned long long)j * num) % m);
+}
+
+__device__ __forceinline__ unsigned step_res(unsigned r, unsigned s,
+                                             unsigned m) {
+  r += s;
+  return r >= m ? r - m : r;
+}
+
+// fixq.round_sig12: the significand rounded half up to 12 bits
+__device__ __forceinline__ float round_sig12(float x) {
+  return __int_as_float((__float_as_int(x) + 0x0800) & ~0x0FFF);
+}
+
+// sin(2 pi x), x in cycles: detmath.sin_cycles_np's f32 polynomials
+__device__ __forceinline__ float sin_cycles(float x, const float* s,
+                                            const float* c) {
+  const float x4 = __fmul_rn(x, 4.0f);
+  const float q = rintf(x4);
+  const float v = __fmul_rn(__fsub_rn(x4, q), 0.25f);
+  const int m = (int)((long long)q & 3);
+  const float z = __fmul_rn(v, v);
+  float sp = __fadd_rn(s[3], __fmul_rn(z, s[4]));
+  sp = __fadd_rn(s[2], __fmul_rn(z, sp));
+  sp = __fadd_rn(s[1], __fmul_rn(z, sp));
+  sp = __fmul_rn(v, __fadd_rn(s[0], __fmul_rn(z, sp)));
+  float cp = __fadd_rn(c[3], __fmul_rn(z, c[4]));
+  cp = __fadd_rn(c[2], __fmul_rn(z, cp));
+  cp = __fadd_rn(c[1], __fmul_rn(z, cp));
+  cp = __fadd_rn(c[0], __fmul_rn(z, cp));
+  const float r = (m & 1) ? cp : sp;
+  return (m & 2) ? -r : r;
+}
+
+// the quantized speed modulation of the sample whose phase residues are
+// rw and rf
+__device__ __forceinline__ float mod_value(unsigned rw, unsigned rf,
+                                           const ModConsts& m) {
+  const float sw = round_sig12(sin_cycles(
+      __fadd_rn(m.p0w, __fmul_rn((float)(int)rw, m.winv)), m.sc, m.cc));
+  const float sf = round_sig12(sin_cycles(
+      __fadd_rn(m.p0f, __fmul_rn((float)(int)rf, m.finv)), m.sc, m.cc));
+  float mv = __fadd_rn(__fadd_rn(1.0f, __fmul_rn(m.wd, sw)),
+                       __fmul_rn(m.fd, sf));
+  mv = mv < 0.1f ? 0.1f : (mv > 3.0f ? 3.0f : mv);
+  return quantize(mv);
+}
+
+struct TabArgs {
+  ModConsts mc;
+  long long T, nchunks, s_init;
+  int n, S, B, R, Rt, E, K, cap, splice;
+};
+
+// the packed input's arrays: starts, ends, reverse, each section's speed
+// row (int32 [S] each), the boundaries (int32 [B]), each row's speed (f32
+// [R]) and its fixed-point integer (int32 [R]); the splice envelope after
+// them is the render's, not the walk's
+struct TabIn {
+  const int* starts;
+  const int* ends;
+  const int* rev;
+  const int* row;
+  const int* bnd;
+  const float* rowspd;
+  const int* rowt;
+};
+
+__host__ __device__ inline TabIn tab_in(const int* in, int S, int B, int R) {
+  TabIn t;
+  t.starts = in;
+  t.ends = in + S;
+  t.rev = in + 2 * S;
+  t.row = in + 3 * S;
+  t.bnd = in + 4 * S;
+  t.rowspd = reinterpret_cast<const float*>(in + 4 * S + B);
+  t.rowt = in + 4 * S + B + R;
+  return t;
+}
+
+// scratch: the records' staging (8 tables of cap), the walked chunks'
+// flags (nchunks), then the sums' table (int64 [Rt][nchunks])
+__host__ __device__ inline long long tab_sums_offset(long long nchunks,
+                                                     int cap) {
+  return (8LL * cap + nchunks + 1) / 2 * 2;
+}
+
+// One warp a chunk: its increments' sums at the first Rt rows' speeds,
+// each sample's modulation computed once, in registers.
+__global__ void __launch_bounds__(kReplayWarps * 32)
+    tables_sums_kernel(ModConsts mc, const float* __restrict__ rowspd, int Rt,
+                       long long T, int K, long long nchunks,
+                       long long* __restrict__ tab) {
+  const int lane = threadIdx.x & 31;
+  const long long ck = (long long)blockIdx.x * kReplayWarps +
+                       (threadIdx.x >> 5);
+  if (ck >= nchunks) return;
+  const long long base = ck * K;
+  const int L = T - base < K ? (int)(T - base) : K;
+  float v[kTableRows];
+  long long s[kTableRows];
+#pragma unroll
+  for (int r = 0; r < kTableRows; ++r) {
+    v[r] = r < Rt ? __ldg(rowspd + r) : 0.0f;
+    s[r] = 0;
+  }
+  unsigned rw = residue(base + lane, mc.wn, mc.wm);
+  unsigned rf = residue(base + lane, mc.fn, mc.fm);
+  for (int j = lane; j < L; j += 32) {
+    const float md = mod_value(rw, rf, mc);
+#pragma unroll
+    for (int r = 0; r < kTableRows; ++r)
+      if (r < Rt) s[r] += increment(v[r], md);
+    rw = step_res(rw, mc.ws32, mc.wm);
+    rf = step_res(rf, mc.fs32, mc.fm);
+  }
+#pragma unroll
+  for (int r = 0; r < kTableRows; ++r) {
+    if (r < Rt) {
+      const long long t = warp_sum(s[r]);
+      if (lane == 0) tab[r * nchunks + ck] = t;
+    }
+  }
+}
+
+// The block's collectives; every thread calls each one.
+struct Blk {
+  long long* ll;   // [kWalkWarps]
+  int* ii;         // [kWalkWarps]
+  long long* e;    // [2]
+  int lane, warp;
+
+  // the inclusive scan of x over the threads in order; total: the sum
+  __device__ long long scan(long long x, long long& total) const {
+    const long long inc = warp_scan(x, lane);
+    if (lane == 31) ll[warp] = inc;
+    __syncthreads();
+    if (warp == 0) {
+      long long w = lane < kWalkWarps ? ll[lane] : 0;
+      w = warp_scan(w, lane);
+      if (lane < kWalkWarps) ll[lane] = w;
+    }
+    __syncthreads();
+    const long long off = warp ? ll[warp - 1] : 0;
+    total = ll[kWalkWarps - 1];
+    __syncthreads();
+    return off + inc;
+  }
+
+  __device__ int min_of(int x) const {
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) x = min(x, __shfl_xor_sync(kFull, x, d));
+    if (lane == 0) ii[warp] = x;
+    __syncthreads();
+    int r = INT_MAX;
+    for (int k = 0; k < kWalkWarps; ++k) r = min(r, ii[k]);
+    __syncthreads();
+    return r;
+  }
+
+  // the owner's a and b to every thread
+  __device__ void share(bool owner, long long& a, long long& b) const {
+    if (owner) {
+      e[0] = a;
+      e[1] = b;
+    }
+    __syncthreads();
+    a = e[0];
+    b = e[1];
+    __syncthreads();
+  }
+};
+
+// The walk's searches.  E(j): the sum of a visit's increments before its
+// sample j, from the visit's start; every search runs at one speed v and
+// finds the first sample k whose inclusive prefix E(k + 1) reaches a
+// target.  Increments are >= 0, so the prefix is monotone and a chunk's
+// sum says whether the crossing lies in it.
+struct TabWalk {
+  TabArgs a;
+  TabIn in;
+  const long long* tab;
+  int* flags;
+  Blk blk;
+
+  // the sum of chunk c's increments at v by one thread (v has no row in
+  // the sums' table)
+  __device__ long long chunk_sum(long long c, float v) const {
+    const long long base = c * a.K;
+    const int L = a.T - base < a.K ? (int)(a.T - base) : a.K;
+    unsigned rw = residue(base, a.mc.wn, a.mc.wm);
+    unsigned rf = residue(base, a.mc.fn, a.mc.fm);
+    long long s = 0;
+    for (int j = 0; j < L; ++j) {
+      s += increment(v, mod_value(rw, rf, a.mc));
+      rw = step_res(rw, a.mc.ws1, a.mc.wm);
+      rf = step_res(rf, a.mc.fs1, a.mc.fm);
+    }
+    return s;
+  }
+
+  // Samples [p, p + m) of one chunk, E = E(p): the first k whose E(k + 1)
+  // reaches target, with Ek = E(k) and Ek1 = E(k + 1), or false with E
+  // advanced to E(p + m).  The chunk is marked walked.
+  __device__ bool exact(long long p, int m, long long& E, long long target,
+                        float v, long long& k, long long& Ek,
+                        long long& Ek1) const {
+    const int per = (m + kTabThreads - 1) / kTabThreads;
+    const int t0 = (int)threadIdx.x * per;
+    int inc[kTabPer];
+    long long own = 0;
+    unsigned rw = residue(p + t0, a.mc.wn, a.mc.wm);
+    unsigned rf = residue(p + t0, a.mc.fn, a.mc.fm);
+#pragma unroll
+    for (int u = 0; u < kTabPer; ++u) {
+      inc[u] = 0;
+      if (u < per && t0 + u < m) {
+        inc[u] = increment(v, mod_value(rw, rf, a.mc));
+        own += inc[u];
+        rw = step_res(rw, a.mc.ws1, a.mc.wm);
+        rf = step_res(rf, a.mc.fs1, a.mc.fm);
+      }
+    }
+    if (threadIdx.x == 0) flags[p / a.K] = 1;
+    long long total;
+    long long run = E + blk.scan(own, total) - own;
+    int cand = INT_MAX;
+    long long ek = 0, ek1 = 0;
+#pragma unroll
+    for (int u = 0; u < kTabPer; ++u) {
+      if (u < per && t0 + u < m && cand == INT_MAX) {
+        if (run + inc[u] >= target) {
+          cand = t0 + u;
+          ek = run;
+          ek1 = run + inc[u];
+        }
+        run += inc[u];
+      }
+    }
+    const int f = blk.min_of(cand);
+    if (f == INT_MAX) {
+      E += total;
+      return false;
+    }
+    blk.share(cand == f, ek, ek1);
+    k = p + f;
+    Ek = ek;
+    Ek1 = ek1;
+    return true;
+  }
+
+  // The first chunk of [c, chi) whose sum brings E to target (chi: none),
+  // E advanced to its start: kTabThreads chunks a round, their sums from
+  // the table's row, else summed here.
+  __device__ long long jump(long long c, long long chi, long long& E,
+                            long long target, int row, float v) const {
+    for (long long g = c; g < chi; g += kTabThreads) {
+      const long long ck = g + threadIdx.x;
+      long long s = 0;
+      if (ck < chi)
+        s = row < a.Rt ? __ldg(tab + (long long)row * a.nchunks + ck)
+                       : chunk_sum(ck, v);
+      long long total;
+      const long long incl = blk.scan(s, total);
+      const int f = blk.min_of(ck < chi && E + incl >= target
+                                   ? (int)threadIdx.x
+                                   : INT_MAX);
+      if (f != INT_MAX) {
+        long long es = E + incl - s, unused = 0;
+        blk.share((int)threadIdx.x == f, es, unused);
+        E = es;
+        return g + f;
+      }
+      E += total;
+    }
+    return chi;
+  }
+
+  // The first sample k in [p, kend) whose E(k + 1) reaches target, from
+  // E = E(p), with Ek = E(k) and Ek1 = E(k + 1); kend (Ek = Ek1 =
+  // E(kend)) if none.  Whole chunks are jumped by their sums; the samples
+  // of a partial chunk and of the chunk that holds the crossing are
+  // walked.
+  __device__ long long seek(long long p, long long E, long long target,
+                            long long kend, int row, float v, long long& Ek,
+                            long long& Ek1) const {
+    bool jumps = true;
+    while (p < kend) {
+      if (jumps && p % a.K == 0) {
+        const long long c = p / a.K;
+        const long long chi = kend >= a.T ? a.nchunks : kend / a.K;
+        if (chi > c) {
+          const long long c2 = jump(c, chi, E, target, row, v);
+          if (c2 == chi) {
+            p = chi * a.K < a.T ? chi * a.K : a.T;
+            continue;
+          }
+          p = c2 * a.K;
+          jumps = false;
+        }
+      }
+      long long end = (p / a.K + 1) * a.K;
+      end = end < a.T ? end : a.T;
+      end = end < kend ? end : kend;
+      long long k;
+      if (exact(p, (int)(end - p), E, target, v, k, Ek, Ek1)) return k;
+      p = end;
+      jumps = true;
+    }
+    Ek = Ek1 = E;
+    return kend;
+  }
+
+  // The C++ walk's exact rule in boundary b's window: from sample jj0
+  // (E0 = E(jj0)) while jj < jend and E(jj) < hi, a sample whose read
+  // index is b triggers the splice unless an envelope still runs
+  // (jj < last_end).  kTabThreads samples a round; the hits in order.
+  __device__ void window(long long jj0, long long E0, long long jend,
+                         long long hi, long long b, long long w, long long f,
+                         long long s0, long long e0, int rv, float v,
+                         int* trig, unsigned* hits, int& nt,
+                         long long& last_end, bool& overflow) const {
+    while (jj0 < jend) {
+      const long long jj = jj0 + threadIdx.x;
+      const bool valid = jj < jend;
+      int inc = 0;
+      if (valid) {
+        inc = increment(v, mod_value(residue(jj, a.mc.wn, a.mc.wm),
+                                     residue(jj, a.mc.fn, a.mc.fm), a.mc));
+        flags[jj / a.K] = 1;
+      }
+      long long total;
+      const long long excl = E0 + blk.scan(inc, total) - inc;
+      const bool inside = valid && excl < hi;
+      const long long fv = f + excl;
+      const long long carry = fv >> kFracBits;
+      const long long lw = w + carry - s0;
+      const long long fj = fv - (carry << kFracBits);
+      long long idx0;
+      if (rv) {
+        const long long x = e0 - 1 - lw;
+        idx0 = fj > 0 ? (x == 0 ? 0 : x - 1) : x;
+      } else {
+        idx0 = s0 + lw;
+      }
+      idx0 = idx0 < 0 ? 0 : (idx0 > a.n - 1 ? a.n - 1 : idx0);
+      const unsigned h = __ballot_sync(kFull, inside && idx0 == b);
+      if (blk.lane == 0) hits[blk.warp] = h;
+      const bool all_in = __syncthreads_and(inside);
+      for (int q = 0; q < kWalkWarps; ++q) {
+        for (unsigned mk = hits[q]; mk; mk &= mk - 1) {
+          const long long t = jj0 + 32 * q + (__ffs(mk) - 1);
+          if (t >= last_end) {
+            if (nt < a.cap) {
+              if (threadIdx.x == 0) trig[nt] = (int)t;
+            } else {
+              overflow = true;
+            }
+            ++nt;
+            last_end = t + a.E;
+          }
+        }
+      }
+      __syncthreads();
+      if (!all_in) return;
+      jj0 += kTabThreads;
+      E0 += total;
+    }
+  }
+};
+
+// One block walks the visits in order, every thread holding the same
+// state (thread 0 writes the records): a visit's section and its crossing
+// (seek to the section's end), then, with the splice on, each boundary
+// the visit can reach in time order (reversed sections in decreasing b),
+// its window found by seek and applied by window(); the records capped at
+// cap and counted past it, then packed after the header.
+__global__ void __launch_bounds__(kTabThreads)
+    tables_walk_kernel(TabArgs a, const int* __restrict__ in_g,
+                       const long long* __restrict__ tab,
+                       int* __restrict__ scratch, int* __restrict__ out) {
+  __shared__ long long sh_ll[kWalkWarps];
+  __shared__ int sh_ii[kWalkWarps];
+  __shared__ long long sh_e[2];
+  __shared__ unsigned sh_hits[kWalkWarps];
+  const TabIn in = tab_in(in_g, a.S, a.B, a.R);
+  const int cap = a.cap;
+  int* stage = scratch;
+  int* flags = scratch + 8LL * cap;
+  for (long long c = threadIdx.x; c < a.nchunks; c += kTabThreads)
+    flags[c] = 0;
+  __syncthreads();
+  const TabWalk wk{a, in, tab, flags,
+                   Blk{sh_ll, sh_ii, sh_e, (int)(threadIdx.x & 31),
+                       (int)(threadIdx.x >> 5)}};
+  const bool lead = threadIdx.x == 0;
+  long long i = 0, w = 0, f = 0, s_int = a.s_init, last_end = -1;
+  int nv = 0, nr = 0, nt = 0, last_s0 = 0;
+  bool overflow = false;
+  while (i < a.T) {
+    w = ((w % a.n) + a.n) % a.n;
+    int lo = 0, hi = a.S;
+    while (lo < hi) {             // upper bound of w in the starts
+      const int mid = (lo + hi) >> 1;
+      if (__ldg(in.starts + mid) <= w) lo = mid + 1; else hi = mid;
+    }
+    const int sec = clampi(lo - 1, 0, a.S - 1);
+    const long long s0 = __ldg(in.starts + sec);
+    long long e0 = __ldg(in.ends + sec);
+    if (e0 <= s0) e0 = s0 + 1;
+    const int row = __ldg(in.row + sec);
+    const float v = __ldg(in.rowspd + row);
+    const int t_int = __ldg(in.rowt + row);
+    if (nv < cap) {
+      if (lead) {
+        stage[nv] = (int)i;
+        stage[cap + nv] = (int)w;
+        stage[2 * cap + nv] = (int)f;
+        stage[3 * cap + nv] = sec;
+      }
+    } else {
+      overflow = true;
+    }
+    ++nv;
+    // one constant run a visit, merged where it continues the last
+    if (!(nr > 0 && nr <= cap && last_s0 == t_int)) {
+      if (nr < cap) {
+        if (lead) {
+          stage[4 * cap + nr] = (int)i;
+          stage[5 * cap + nr] = t_int;
+          stage[6 * cap + nr] = 0;
+        }
+        last_s0 = t_int;
+      } else {
+        overflow = true;
+      }
+      ++nr;
+    }
+    long long Ek, Ek1;
+    const long long k = wk.seek(i, 0, (e0 - w) * kPosOne - f, a.T, row, v,
+                                Ek, Ek1);
+    const long long jend = k < a.T ? k + 1 : a.T;
+    const long long total = k < a.T ? Ek1 : Ek;
+    if (a.splice) {
+      int b0 = 0, b1 = 0;         // lower bounds of s0 and e0
+      for (int x = a.B; x > 0;) {
+        const int h = x >> 1;
+        if (__ldg(in.bnd + b0 + h) < s0) { b0 += h + 1; x -= h + 1; }
+        else x = h;
+      }
+      for (int x = a.B; x > 0;) {
+        const int h = x >> 1;
+        if (__ldg(in.bnd + b1 + h) < e0) { b1 += h + 1; x -= h + 1; }
+        else x = h;
+      }
+      const int rv = __ldg(in.rev + sec);
+      long long ck = i, cE = 0;   // the windows' search resumes here
+      for (int st = 0; st < b1 - b0; ++st) {
+        const long long b = __ldg(in.bnd + (rv ? b1 - 1 - st : b0 + st));
+        long long Wlo, Wn;        // the whole positions where idx0 can be b
+        if (rv) {
+          Wlo = s0 + (e0 - 2 - b);
+          Wn = 2;
+          if (Wlo < w) {
+            Wn -= w - Wlo;
+            Wlo = w;
+          }
+          if (Wn <= 0) continue;
+        } else {
+          if (b < w) continue;
+          Wlo = b;
+          Wn = 1;
+        }
+        long long lo_e = (Wlo - w) * kPosOne - f;
+        const long long hi_e = lo_e + Wn * kPosOne;
+        if (lo_e < 0) lo_e = 0;
+        long long ja = i, Eja = 0;
+        if (lo_e > 0) {
+          long long yk, yk1;
+          const long long y = wk.seek(ck, cE, lo_e, jend - 1, row, v, yk,
+                                      yk1);
+          ck = y;
+          cE = yk;
+          ja = y < jend - 1 ? y + 1 : jend;
+          Eja = yk1;
+        }
+        wk.window(ja, Eja, jend, hi_e, b, w, f, s0, e0, rv, v, stage + 7 * cap,
+                  sh_hits, nt, last_end, overflow);
+      }
+    }
+    const long long fv = f + total;
+    const long long carry = fv >> kFracBits;
+    w += carry;
+    f = fv - (carry << kFracBits);
+    s_int = t_int;
+    i = jend;
+  }
+  __syncthreads();
+  long long mine = 0, walked;
+  for (long long c = threadIdx.x; c < a.nchunks; c += kTabThreads)
+    mine += flags[c];
+  wk.blk.scan(mine, walked);
+  if (lead) {
+    out[0] = nv;
+    out[1] = nr;
+    out[2] = nt;
+    out[3] = overflow;
+    long long* h = reinterpret_cast<long long*>(out + 4);
+    h[0] = w;
+    h[1] = f;
+    h[2] = s_int;
+    h[3] = last_end > a.T ? last_end - a.T : 0;
+    h[4] = last_end > a.T ? a.E - (last_end - a.T) : 0;
+    out[14] = (int)walked;
+    out[15] = (int)(a.nchunks - walked);
+  }
+  const int cv = min(nv, cap), cr = min(nr, cap), ct = min(nt, cap);
+  int* o = out + kTabHead;
+  for (int x = threadIdx.x; x < cv; x += kTabThreads)
+    for (int q = 0; q < 4; ++q) o[q * cv + x] = stage[q * cap + x];
+  o += 4 * cv;
+  for (int x = threadIdx.x; x < cr; x += kTabThreads)
+    for (int q = 0; q < 3; ++q) o[q * cr + x] = stage[(4 + q) * cap + x];
+  o += 3 * cr;
+  for (int x = threadIdx.x; x < ct; x += kTabThreads) o[x] = stage[7 * cap + x];
+}
+
 }  // namespace
 
 // The int32 words of scratch ts_launch needs for T steps, S sections and
@@ -1060,6 +1636,78 @@ extern "C" int ts_launch(const float* audio, int n, const float* mod_q,
                                            env, c, state_in, scratch, out,
                                            state_out, s, marks);
   return (int)err;
+}
+
+// The int32 words of scratch ts_tables_launch needs for T samples, R
+// distinct speeds, chunks of K and `cap` records a table.
+extern "C" long long ts_tables_scratch_words(long long T, int R, int K,
+                                             int cap) {
+  const long long nchunks = K > 0 ? (T + K - 1) / K : 0;
+  const int Rt = R < kTableRows ? R : kTableRows;
+  return tab_sums_offset(nchunks, cap) + 2LL * Rt * nchunks;
+}
+
+// The tape's control tables of a T-sample render of an n-sample tape from
+// position 0 with the speed held in each visit (inertia off), on
+// `stream`, the decisions of native/ast_runtime.cpp's ast_tape_tables.
+// `in`: the packed input (device, int32 words: starts, ends, reverse,
+// row of each of the S sections, the B boundaries, the R rows' f32 speeds
+// and fixed-point integers); E: the splice envelope's length; s_init: the
+// initial speed's fixed-point integer; mod_ints (wn, wm, fn, fm), mod_flts
+// (winv, finv, wd, fd, p0w, p0f) and coeffs (detmath's 5 sine then 5
+// cosine coefficients) are host arrays.  out (kTabHead + 8 cap int32):
+// the visit, run and trigger counts, whether one passed cap, the final
+// whole, frac, speed integer, splice rem and index (int64 each from word
+// 4), the walked and jumped chunks, then the records packed, each table
+// capped at cap: visit start, whole, frac, section; run start, speed,
+// slope; triggers.  scratch: ts_tables_scratch_words int32.  Returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for n < 1,
+// S < 1, R < 1, T past 2^31, cap < 1, a period of 0 or a K that is no
+// power of two in [kMinChunk, kMaxChunk].
+extern "C" int ts_tables_launch(const int* in, int S, int B, int R,
+                                long long T, int n, int E, int splice_on,
+                                long long s_init, const unsigned* mod_ints,
+                                const float* mod_flts, const float* coeffs,
+                                int K, int cap, int* scratch, int* out,
+                                void* stream) {
+  if (n < 1 || S < 1 || B < 0 || R < 1 || R > S || E < 0 || T < 0 ||
+      T >= (1LL << 31) || cap < 1 || mod_ints[1] == 0 || mod_ints[3] == 0 ||
+      K < kMinChunk || K > kMaxChunk || (K & (K - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  ModConsts mc;
+  mc.wn = mod_ints[0];
+  mc.wm = mod_ints[1];
+  mc.fn = mod_ints[2];
+  mc.fm = mod_ints[3];
+  mc.ws1 = mc.wn % mc.wm;
+  mc.fs1 = mc.fn % mc.fm;
+  mc.ws32 = (unsigned)((32ULL * mc.wn) % mc.wm);
+  mc.fs32 = (unsigned)((32ULL * mc.fn) % mc.fm);
+  mc.winv = mod_flts[0];
+  mc.finv = mod_flts[1];
+  mc.wd = mod_flts[2];
+  mc.fd = mod_flts[3];
+  mc.p0w = mod_flts[4];
+  mc.p0f = mod_flts[5];
+  for (int k = 0; k < 5; ++k) {
+    mc.sc[k] = coeffs[k];
+    mc.cc[k] = coeffs[5 + k];
+  }
+  const long long nchunks = (T + K - 1) / K;
+  const int Rt = R < kTableRows ? R : kTableRows;
+  TabArgs a{mc, T, nchunks, s_init, n, S, B, R, Rt, E, K, cap,
+            splice_on != 0 && B > 0};
+  long long* tab = reinterpret_cast<long long*>(
+      scratch + tab_sums_offset(nchunks, cap));
+  cudaStream_t s = (cudaStream_t)stream;
+  if (nchunks > 0) {
+    const unsigned grid = (unsigned)((nchunks + kReplayWarps - 1) /
+                                     kReplayWarps);
+    tables_sums_kernel<<<grid, kReplayWarps * 32, 0, s>>>(
+        mc, tab_in(in, S, B, R).rowspd, Rt, T, K, nchunks, tab);
+  }
+  tables_walk_kernel<<<1, kTabThreads, 0, s>>>(a, in, tab, scratch, out);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* ts_error_string(int code) {

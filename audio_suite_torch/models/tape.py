@@ -4,9 +4,10 @@
   sections, retime, the wow/flutter curve and its constants (with the
   trace renderer's phase continuation, ``lfo_phase_cycles``), the splice
   envelope, beat detection and ``build_tape_program`` — NumPy, the same
-  arrays as the JAX package — and the control tables from the shared C++
-  runtime (``utils/native_rt.py``), memoized on the program as
-  ``prog["_tables"]``;
+  arrays as the JAX package — and the control tables, memoized on the
+  program as ``prog["_tables"]``: on a card with inertia off from the
+  hand-written table walk (``varispeed.tape_tables_on_card``), else from
+  the shared C++ runtime (``utils/native_rt.py``), the same tables;
 - ``render_tape`` with its three engines: ``"device"`` (the table engine,
   ``ops/varispeed.tape_device_render``: positions, the linear read
   through the CUDA kernel on the card or the plain-PyTorch sinc read,
@@ -15,8 +16,9 @@
   hand-written ``kernels/tape_scan.cu``);
 - the tracer's spans (``utils/profiling.py``, off by default) on the
   device engine's render: ``tape.render`` (the root; ``memo_hit``,
-  ``frames``), ``tape.build`` (``hit``), ``tape.tables`` (``hit`` and the
-  table sizes ``visits``, ``runs``, ``triggers``), ``tape.upload``, the
+  ``frames``), ``tape.build`` (``hit``), ``tape.tables`` (``hit``, the
+  table sizes ``visits``, ``runs``, ``triggers``, and ``on_card``,
+  ``chunks_walked``, ``chunks_jumped``), ``tape.upload``, the
   device stages ``tape.positions`` and ``tape.read``, and ``tape.pull``;
 - the performance renderer: a ``TapeTrace`` of timed edits, split at its
   event times into segment programs with the position, speed and splice
@@ -229,14 +231,25 @@ def _device_audio(audio, device) -> torch.Tensor:
     return audio
 
 
+#: the fastest section or initial speed a program takes: the walks' per-
+#: sample increment rint(speed * mod * 2**22), mod <= 3, is an int32 (the
+#: C++ walk's and the card's), which a speed past ~170 overflows
+MAX_SPEED = 128.0
+
+
 def _section_program(params: TapeParams, n: int, initial_speed: float):
     """The section tables and the TapeConsts of ``params`` over an
-    n-sample tape, starting at ``initial_speed``."""
+    n-sample tape, starting at ``initial_speed``; a speed whose magnitude
+    is not a finite number at most MAX_SPEED raises ValueError."""
     starts, ends = sections_from_markers(params.markers, n)
     nsec = len(starts)
     speeds = [abs(float(params.section_speeds[i]))
               if i < len(params.section_speeds) else 1.0
               for i in range(nsec)]
+    if not all(s <= MAX_SPEED for s in speeds + [abs(float(initial_speed))]):
+        raise ValueError(f"tape speeds must be finite and at most "
+                         f"{MAX_SPEED:g} in magnitude: sections {speeds}, "
+                         f"initial {initial_speed}")
     revs = [bool(params.section_reverse[i])
             if i < len(params.section_reverse) else False
             for i in range(nsec)]
@@ -295,7 +308,7 @@ def build_tape_program_cached(audio, params: TapeParams, num_frames: int, *,
     """build_tape_program memoized on (audio identity, device, params
     content, num_frames), LRU-bounded at 8 programs, so that re-renders of
     an unchanged tape and parameters skip the host build and, through
-    ``prog["_tables"]``, the C++ table walk.  The audio is keyed by object
+    ``prog["_tables"]``, the table walk.  The audio is keyed by object
     identity: reuse the same array or tensor across renders."""
     return _cached_program(audio, params, num_frames, device)[0]
 
@@ -316,55 +329,84 @@ def _cached_program(audio, params: TapeParams, num_frames: int, device):
 
 
 def program_tables(prog: dict) -> dict:
-    """The program's control tables (C++ walk on first use, then the
-    memo ``prog["_tables"]``), in the ``tape.tables`` span."""
+    """The program's control tables (walked on first use, then the memo
+    ``prog["_tables"]``), in the ``tape.tables`` span: ``hit``, the table
+    sizes, ``on_card`` (1 where the card's walk built them) and its
+    ``chunks_walked`` / ``chunks_jumped``."""
     with span("tape.tables") as sp:
         hit = prog.get("_tables") is not None
-        tables = _tables(prog)
+        walk = _walk(prog)
+        tables = prog["_tables"]
         sp.set(hit=hit, visits=len(tables["visit_start"]),
                runs=len(tables["run_start"]),
-               triggers=len(tables["triggers"]))
+               triggers=len(tables["triggers"]),
+               on_card=int(walk is not None),
+               chunks_walked=walk["chunks_walked"] if walk else 0,
+               chunks_jumped=walk["chunks_jumped"] if walk else 0)
         return tables
 
 
-def _tables(prog: dict) -> dict:
-    """``program_tables`` outside its span (``device_tables`` walks a
-    program it finds without tables inside its own span)."""
-    tables = prog.get("_tables")
+def _walk(prog: dict):
+    """``program_tables`` outside its span: leaves both memos set,
+    ``prog["_tables"]`` (the NumPy tables) and ``prog["_device_tables"]``
+    (those ``ops/varispeed.tape_positions`` reads, on the tape's device),
+    and returns the card walk's chunk counts where it built the tables
+    now, else None.  A program that carries ``_tables`` (the trace
+    renderer's segments) keeps them; a tape off the CPU with inertia off
+    walks on the card (``varispeed.tape_tables_on_card``: the tables stay
+    there, nothing is copied up); the others (CPU tapes, inertia) take the
+    C++ walk, whose tables are copied to the device here."""
+    tables, walk = prog.get("_tables"), None
     if tables is None:
-        tables = native_rt.tape_tables(
-            prog["num_frames"], int(prog["audio"].shape[0]),
-            prog["mod_consts"], prog["starts"], prog["ends"],
-            prog["speeds_q"], prog["reverse"], prog["boundaries"],
-            len(prog["splice_env"]), prog["consts"])
+        args = (prog["num_frames"], int(prog["audio"].shape[0]),
+                prog["mod_consts"], prog["starts"], prog["ends"],
+                prog["speeds_q"], prog["reverse"], prog["boundaries"])
+        if (prog["audio"].device.type != "cpu"
+                and not prog["consts"].inertia_on):
+            tables, tab, walk = varispeed.tape_tables_on_card(
+                *args, prog["splice_env"], prog["consts"],
+                prog["audio"].device)
+            ints, flts, ph0 = prog["mod_consts"]
+            prog["_device_tables"] = dict(
+                tab, mod_ints=ints, mod_flts=flts, phase0=ph0,
+                boundaries=[int(b) for b in prog["boundaries"]])
+        else:
+            tables = native_rt.tape_tables(*args, len(prog["splice_env"]),
+                                           prog["consts"])
         prog["_tables"] = tables
-    return tables
+    if prog.get("_device_tables") is None:
+        prog["_device_tables"] = _upload(prog, tables)
+    return walk
+
+
+def _upload(prog: dict, tables: dict) -> dict:
+    """The C++ walk's tables (a few KB) copied to the tape's device."""
+    dev = prog["audio"].device
+
+    def i32(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=dev)
+    ints, flts, ph0 = prog["mod_consts"]
+    tab = {k: i32(tables[k]) for k in (
+        "visit_start", "visit_bw", "visit_bf", "visit_sec",
+        "run_start", "run_s0", "run_m", "triggers")}
+    tab.update(
+        mod_ints=ints, mod_flts=flts, phase0=ph0,
+        starts=i32(prog["starts"]), ends=i32(prog["ends"]),
+        reverse=torch.as_tensor(prog["reverse"], device=dev),
+        boundaries=[int(b) for b in prog["boundaries"]],
+        splice_env=torch.as_tensor(prog["splice_env"], device=dev))
+    return tab
 
 
 def device_tables(prog: dict) -> dict:
     """The tables ``ops/varispeed.tape_positions`` reads, on the tape's
-    device (a few KB, copied once per program and memoized), in the
+    device, memoized on the program by its walk (``_walk``: the card's
+    walk leaves them there, the C++ walk's are copied up with it), in the
     ``tape.upload`` span."""
     with span("tape.upload"):
-        tab = prog.get("_device_tables")
-        if tab is None:
-            tables = _tables(prog)
-            dev = prog["audio"].device
-
-            def i32(a):
-                return torch.as_tensor(np.asarray(a, np.int32), device=dev)
-            ints, flts, ph0 = prog["mod_consts"]
-            tab = {k: i32(tables[k]) for k in (
-                "visit_start", "visit_bw", "visit_bf", "visit_sec",
-                "run_start", "run_s0", "run_m", "triggers")}
-            tab.update(
-                mod_ints=ints, mod_flts=flts, phase0=ph0,
-                starts=i32(prog["starts"]), ends=i32(prog["ends"]),
-                reverse=torch.as_tensor(prog["reverse"], device=dev),
-                boundaries=[int(b) for b in prog["boundaries"]],
-                splice_env=torch.as_tensor(prog["splice_env"], device=dev))
-            prog["_device_tables"] = tab
-        return tab
+        if prog.get("_device_tables") is None:
+            _walk(prog)
+        return prog["_device_tables"]
 
 
 def tape_table_render(prog: dict, out_i16: bool = False,

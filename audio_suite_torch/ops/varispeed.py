@@ -10,6 +10,10 @@ is integer math and bit-identical to the JAX package and its NumPy oracle.
   fraction and gains) and ``tape_tables`` (the compact control tables, with
   the raw boundary ``hits`` the trace renderer's splice machine needs;
   the C++ twin in ``utils/native_rt.py`` returns no ``hits``).
+- The control tables on the card, ``tape_tables_on_card``: the C++
+  walk's decisions (inertia off) by ``kernels/tape_scan.cu``'s table
+  walk, from one copy of its inputs to one pull of the records; its
+  plain twin ``tape_tables_plain`` runs the same chunk search on the CPU.
 - The table engine, ``tape_device_render``: the device rebuilds every
   sample from the tables (``tape_positions``: the wow/flutter curve
   through the detmath twins, run expansion, the segmented position sum,
@@ -35,6 +39,7 @@ not ported.
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
 from typing import NamedTuple, Optional
 
@@ -497,6 +502,344 @@ def tape_tables(audio_n: int, mod_q, starts, ends, speeds_q, reverse,
         # trigger — greedy-suppressed triggers can't recover that
         hits=np.asarray(hits, np.int64),
         final=final)
+
+
+# ----------------------------------------------------------------------------
+# The control tables on the card (kernels/tape_scan.cu's table walk) and
+# its plain twin: the C++ walk's decisions by chunk sums
+# ----------------------------------------------------------------------------
+
+#: the records a table holds before the walk runs again with room
+TABLES_CAP = 256
+_TABLES_PULL = 512          # int32 words of the output's first pull
+# the tables in the order the card walk packs them (4 of visits, 3 of runs)
+_TABLE_NAMES = ("visit_start", "visit_bw", "visit_bf", "visit_sec",
+                "run_start", "run_s0", "run_m", "triggers")
+
+
+def _speed_rows(speeds_q):
+    """Each section's row among the distinct speeds (in order of first
+    use), and each row's integer t = rint(f64(speed) * 2**22) and f32
+    speed t * 2**-22, as the C++ walk makes them."""
+    t = np.rint(np.asarray(speeds_q, np.float32).astype(np.float64)
+                * POS_ONE).astype(np.int64)
+    _, first, inv = np.unique(t, return_index=True, return_inverse=True)
+    rank = np.argsort(np.argsort(first))
+    row_t = t[np.sort(first)]
+    row_v = (row_t.astype(np.float64) * 2.0 ** -POS_FRAC_BITS) \
+        .astype(np.float32)
+    return rank[inv.reshape(-1)].astype(np.int32), row_t, row_v
+
+
+def _s_init(consts: TapeConsts) -> int:
+    """The initial speed's fixed-point integer, as the C++ walk makes
+    it."""
+    return int(np.rint(np.float64(np.float32(consts.initial_speed_q))
+                       * POS_ONE))
+
+
+def _room(counts, cap: int) -> int:
+    """The capacity of the walk's next run after a table passed ``cap``
+    with these counts."""
+    return int(max(max(int(c) for c in counts) + 16, cap * 2))
+
+
+def _final(whole, frac, s_int, rem, sidx) -> dict:
+    """The walk's final playback state as ``native_rt.tape_tables`` gives
+    it."""
+    speed = np.int64(s_int) * np.float32(1.0 / (1 << POS_FRAC_BITS))
+    return dict(whole=int(whole), frac=int(frac),
+                speed=float(np.float32(speed)), splice_rem=int(rem),
+                splice_idx=int(sidx))
+
+
+def tables_kernel_args(T: int, n: int, mod_consts, starts, ends, speeds_q,
+                       reverse, boundaries, splice_env, consts: TapeConsts,
+                       device) -> tuple:
+    """``kernels.tape_tables``' arguments but the chunk and the capacity:
+    the packed input, one int32 array copied to ``device`` at once (the
+    sections' starts, ends, reverse flags and speed rows, the boundaries,
+    the rows' f32 speeds (their bits) and integers (``_speed_rows``), then
+    the splice envelope's f32 bits: the render's, not the walk's), its
+    sizes, T, n, the envelope's length, the splice flag, the initial
+    speed's integer and the wow/flutter and sine constants."""
+    row, row_t, row_v = _speed_rows(speeds_q)
+    packed = np.concatenate([
+        np.asarray(starts, np.int32), np.asarray(ends, np.int32),
+        np.asarray(reverse, bool).astype(np.int32), row,
+        np.asarray(boundaries, np.int32), row_v.view(np.int32),
+        row_t.astype(np.int32),
+        np.asarray(splice_env, np.float32).view(np.int32)])
+    ints, flts, ph0 = mod_consts
+    flts = np.concatenate([np.asarray(flts, np.float32),
+                           np.asarray(ph0, np.float32)])
+    coeffs = np.asarray(detmath._S32 + detmath._C32, np.float32)
+    return (torch.as_tensor(packed, device=device), len(starts),
+            len(boundaries), len(row_t), int(T), int(n), len(splice_env),
+            bool(consts.splice_on), _s_init(consts), ints, flts, coeffs)
+
+
+def tape_tables_on_card(T: int, n: int, mod_consts, starts, ends, speeds_q,
+                        reverse, boundaries, splice_env,
+                        consts: TapeConsts, device,
+                        chunk: int = kernels.TAPE_SCAN_CHUNK):
+    """The control tables of a T-sample render of an n-sample tape from
+    position 0 (``native_rt.tape_tables``' decisions; inertia off, every
+    speed at most ``models/tape.py:MAX_SPEED``, so that each increment is
+    an int32 >= 0 and the prefix is monotone), built on the card by
+    ``kernels.tape_tables`` in chunks of ``chunk``: the inputs in one
+    copy, the launch, one pull of the header and the records (a second
+    where they pass its words), and the launch again with room where a
+    table passed its capacity (TABLES_CAP first).
+
+    Returns (tables, tab, walk): ``tables`` the NumPy dict
+    ``native_rt.tape_tables`` returns; ``tab`` the tables
+    ``tape_positions`` reads that live on the card, views of the output
+    and of the input (int32 ``visit_*``, ``run_*``, ``triggers``,
+    ``starts``, ``ends``; bool ``reverse``; f32 ``splice_env``); ``walk``
+    the chunks walked and jumped and the launches."""
+    args = tables_kernel_args(T, n, mod_consts, starts, ends, speeds_q,
+                              reverse, boundaries, splice_env, consts,
+                              device)
+    packed, S, B, R, E = args[0], args[1], args[2], args[3], args[6]
+    cap, launches = TABLES_CAP, 0
+    while True:
+        out = kernels.tape_tables(*args, chunk, cap)
+        launches += 1
+        head = out[:min(out.shape[0], _TABLES_PULL)].cpu().numpy()
+        if not head[3]:
+            break
+        cap = _room(head[:3], cap)
+    nv, nr, nt = (int(c) for c in head[:3])
+    words = kernels.TAPE_TABLES_HEAD + 4 * nv + 3 * nr + nt
+    if words > head.shape[0]:
+        head = out[:words].cpu().numpy()
+    fin = np.ascontiguousarray(head[4:14]).view(np.int64)
+    tables, tab = {}, {}
+    o = kernels.TAPE_TABLES_HEAD
+    for name, size in zip(_TABLE_NAMES, (nv,) * 4 + (nr,) * 3 + (nt,)):
+        tables[name] = head[o:o + size]
+        tab[name] = out[o:o + size]
+        o += size
+    tables["final"] = _final(*fin[:5])
+    env0 = 4 * S + B + 2 * R
+    tab.update(starts=packed[:S], ends=packed[S:2 * S],
+               reverse=packed[2 * S:3 * S] != 0,
+               splice_env=packed[env0:env0 + E].view(torch.float32))
+    walk = dict(chunks_walked=int(head[14]), chunks_jumped=int(head[15]),
+                launches=launches)
+    return tables, tab, walk
+
+
+class _PlainWalk:
+    """The card walk's searches on the CPU (``tape_scan.cu``'s TabWalk):
+    a row's increments f32 -> int64 over all T, its chunks' sums, and the
+    walked chunks' flags."""
+
+    def __init__(self, T: int, K: int, mod: torch.Tensor, row_v):
+        self.T, self.K = T, K
+        self.nchunks = -(-T // K)
+        self.flags = np.zeros(self.nchunks, bool)
+        self._mod, self._row_v = mod, row_v
+        self._inc, self._sums = {}, {}
+
+    def inc(self, row: int) -> torch.Tensor:
+        if row not in self._inc:
+            v = torch.tensor(self._row_v[row], dtype=torch.float32)
+            x = torch.round((v * self._mod) * float(POS_ONE)).to(torch.int64)
+            pad = self.nchunks * self.K - self.T
+            self._inc[row] = x
+            self._sums[row] = torch.nn.functional.pad(x, (0, pad)) \
+                .view(self.nchunks, self.K).sum(1)
+        return self._inc[row]
+
+    def exact(self, p: int, end: int, E: int, target: int, row: int):
+        """Samples [p, end) of one chunk from E = E(p): ((k, E(k),
+        E(k + 1)), E) for the first k whose E(k + 1) reaches target, or
+        (None, E(end))."""
+        self.flags[p // self.K] = True
+        x = self.inc(row)[p:end]
+        c = torch.cumsum(x, 0)
+        k = int(torch.searchsorted(c, torch.tensor([target - E])))
+        if k == c.shape[0]:
+            return None, E + int(c[-1])
+        return (p + k, E + int(c[k]) - int(x[k]), E + int(c[k])), E
+
+    def jump(self, c: int, chi: int, E: int, target: int, row: int):
+        """The first chunk of [c, chi) whose sum brings E to target (chi:
+        none), and E at its start."""
+        self.inc(row)
+        s = self._sums[row][c:chi]
+        cs = torch.cumsum(s, 0)
+        k = int(torch.searchsorted(cs, torch.tensor([target - E])))
+        if k == cs.shape[0]:
+            return chi, E + int(cs[-1])
+        return c + k, E + int(cs[k]) - int(s[k])
+
+    def seek(self, p: int, E: int, target: int, kend: int, row: int):
+        """(k, E(k), E(k + 1)) for the first k in [p, kend) whose E(k + 1)
+        reaches target, else (kend, E(kend), E(kend)); E = E(p)."""
+        K, T = self.K, self.T
+        jumps = True
+        while p < kend:
+            if jumps and p % K == 0:
+                c = p // K
+                chi = self.nchunks if kend >= T else kend // K
+                if chi > c:
+                    c2, E = self.jump(c, chi, E, target, row)
+                    if c2 == chi:
+                        p = min(chi * K, T)
+                        continue
+                    p, jumps = c2 * K, False
+            end = min((p // K + 1) * K, T, kend)
+            hit, E = self.exact(p, end, E, target, row)
+            if hit is not None:
+                return hit
+            p, jumps = end, True
+        return kend, E, E
+
+    def window(self, jj0: int, E0: int, jend: int, hi: int, b: int,
+               visit: tuple, row: int, n: int, trigger) -> None:
+        """The C++ rule in boundary b's window, TAPE_TABLES_TILE samples a
+        round from jj0 (E0 = E(jj0)): ``trigger(t)`` for each sample t,
+        in order, whose read index is b."""
+        w, f, s0, e0, rv = visit
+        x_all = self.inc(row)
+        tile = kernels.TAPE_TABLES_TILE
+        while jj0 < jend:
+            tend = min(jj0 + tile, jend)
+            self.flags[jj0 // self.K:(tend - 1) // self.K + 1] = True
+            x = x_all[jj0:tend]
+            c = torch.cumsum(x, 0)
+            excl = E0 + c - x
+            inside = excl < hi
+            fv = f + excl
+            carry = fv >> POS_FRAC_BITS
+            lw = w + carry - s0
+            if rv:
+                a = e0 - 1 - lw
+                idx0 = torch.where(fv - (carry << POS_FRAC_BITS) > 0,
+                                   torch.where(a == 0, 0, a - 1), a)
+            else:
+                idx0 = s0 + lw
+            idx0 = idx0.clamp(0, n - 1)
+            for t in torch.nonzero(inside & (idx0 == b)).flatten().tolist():
+                trigger(jj0 + t)
+            if tend - jj0 < tile or not bool(inside.all()):
+                return
+            jj0, E0 = tend, E0 + int(c[-1])
+
+
+def _plain_walk(T: int, n: int, mod: torch.Tensor, starts, ends, reverse,
+                boundaries, rows, env_len: int, splice_on: bool, s_init: int,
+                chunk: int, cap: int):
+    """One run of the card walk's visit loop (``tables_walk_kernel``)
+    with tables of ``cap`` records: (the tables' lists, the counts,
+    whether one passed cap, the final state, the walk)."""
+    row, row_t, row_v = rows
+    walk = _PlainWalk(T, chunk, mod, row_v)
+    S = len(starts)
+    tabs = [[] for _ in range(8)]
+    st = dict(nv=0, nr=0, nt=0, overflow=False, last_end=-1)
+
+    def record(count: str, first: int, *vals):
+        if st[count] < cap:
+            for k, v in enumerate(vals):
+                tabs[first + k].append(v)
+        else:
+            st["overflow"] = True
+        st[count] += 1
+
+    def trigger(t: int):
+        if t >= st["last_end"]:
+            record("nt", 7, t)
+            st["last_end"] = t + env_len
+
+    splice = splice_on and len(boundaries) > 0
+    i = w = f = 0
+    s_int, last_s0 = s_init, 0
+    while i < T:
+        w %= n
+        sec = min(max(bisect.bisect_right(starts, w) - 1, 0), S - 1)
+        s0, e0 = starts[sec], max(ends[sec], starts[sec] + 1)
+        r = int(row[sec])
+        t_int = int(row_t[r])
+        record("nv", 0, i, w, f, sec)
+        nr = st["nr"]
+        if not (0 < nr <= cap and last_s0 == t_int):
+            if nr < cap:
+                last_s0 = t_int
+            record("nr", 4, i, t_int, 0)
+        k, Ek, Ek1 = walk.seek(i, 0, (e0 - w) * POS_ONE - f, T, r)
+        jend, total = (k + 1, Ek1) if k < T else (T, Ek)
+        if splice:
+            b0 = bisect.bisect_left(boundaries, s0)
+            b1 = bisect.bisect_left(boundaries, e0)
+            rv = bool(reverse[sec])
+            ck, cE = i, 0
+            for step in range(b1 - b0):
+                b = boundaries[b1 - 1 - step] if rv else boundaries[b0 + step]
+                if rv:
+                    wlo, wn = s0 + (e0 - 2 - b), 2
+                    if wlo < w:
+                        wlo, wn = w, wn - (w - wlo)
+                    if wn <= 0:
+                        continue
+                elif b < w:
+                    continue
+                else:
+                    wlo, wn = b, 1
+                lo = (wlo - w) * POS_ONE - f
+                hi = lo + wn * POS_ONE
+                ja, Eja = i, 0
+                if lo > 0:
+                    y, cE, Eja = walk.seek(ck, cE, lo, jend - 1, r)
+                    ck = y
+                    ja = y + 1 if y < jend - 1 else jend
+                walk.window(ja, Eja, jend, hi, b, (w, f, s0, e0, rv), r, n,
+                            trigger)
+        fv = f + total
+        carry = fv >> POS_FRAC_BITS
+        w, f = w + carry, fv - (carry << POS_FRAC_BITS)
+        s_int, i = t_int, jend
+    rem = st["last_end"] - T if st["last_end"] > T else 0
+    final = (w, f, s_int, rem, env_len - rem if rem else 0)
+    walked = int(walk.flags.sum())
+    return (tabs, (st["nv"], st["nr"], st["nt"]), st["overflow"], final,
+            dict(chunks_walked=walked, chunks_jumped=walk.nchunks - walked))
+
+
+def tape_tables_plain(T: int, n: int, mod_consts, starts, ends, speeds_q,
+                      reverse, boundaries, splice_env_len: int,
+                      consts: TapeConsts,
+                      chunk: int = kernels.TAPE_SCAN_CHUNK):
+    """The card's table walk in plain PyTorch on the CPU, the reference
+    ``kernels.tape_tables`` is held against: the wow/flutter curve
+    (``_wow_flutter_device``), each distinct speed's int64 increments and
+    their sums over chunks of ``chunk``, and for each visit the chunk
+    search to the section's end, the exact sample inside that chunk, and
+    each boundary window's per-sample rule in rounds of
+    ``kernels.TAPE_TABLES_TILE``; tables of TABLES_CAP records, run again
+    with room where one passes it.  Returns (tables, walk): the NumPy dict
+    of ``native_rt.tape_tables`` and the chunks walked and jumped and the
+    runs (as ``tape_tables_on_card``'s launches)."""
+    ints, flts, ph0 = mod_consts
+    mod = _wow_flutter_device(T, ints, flts, ph0, "cpu")
+    args = (T, n, mod, [int(s) for s in starts], [int(e) for e in ends],
+            np.asarray(reverse, bool), [int(b) for b in boundaries],
+            _speed_rows(speeds_q), int(splice_env_len),
+            bool(consts.splice_on), _s_init(consts), chunk)
+    cap, runs = TABLES_CAP, 0
+    while True:
+        tabs, counts, overflow, final, walk = _plain_walk(*args, cap)
+        runs += 1
+        if not overflow:
+            break
+        cap = _room(counts, cap)
+    tables = {k: np.asarray(v, np.int64).astype(np.int32)
+              for k, v in zip(_TABLE_NAMES, tabs)}
+    tables["final"] = _final(*final)
+    return tables, dict(walk, launches=runs)
 
 
 # ----------------------------------------------------------------------------

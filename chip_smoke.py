@@ -6,6 +6,7 @@
     python3 chip_smoke.py --tape-scan-ab path/to/tape_scan.cu
     python3 chip_smoke.py --bank
     python3 chip_smoke.py --space
+    python3 chip_smoke.py --tables
 
 The second form builds the kernels, then only holds another grain_scan.cu
 (e.g. an earlier commit's, from ``git archive`` into the git-ignored
@@ -18,7 +19,9 @@ the first form runs after phase 5): the fused bank of
 ``kernels/voice_bank.cu`` against the eager bank at the benchmark's
 ``regen-20s`` and ``regen-120s`` shapes and at 230 kHz (the scan).
 The fifth runs only Microsound's ER (x) IR kernel (``space_conv_path``,
-which the first form runs after phase 3).
+which the first form runs after phase 3).  The sixth runs only the tape's
+control tables on the card (``tape_tables_path``, phase 4b, which the
+first form runs after phase 4).
 
 Drives audio_suite_torch's ported paths at full size on the card, in
 phases; any failure raises and the exit code is non-zero.  The paths:
@@ -91,15 +94,24 @@ Phases:
    a miss on the card split into its steps; the ``space_conv`` row counts
    the launches of the main path's ``_space_kernels`` calls (3b, the
    render of 3, phases 9 and 11-13) under ``launches_by_path``;
-4. tape: the lerp-read kernel against its plain version at the full-size
-   render's own positions (bit-equal, timed, with its bound; no one
-   PyTorch call computes the read); the render through
-   ``models.tape.render_tape`` and ``tape_table_render(out_i16=True)``
-   with every kernel launch counted; output checks; the float render
-   bit-equal to one made with the plain read; the smoke-size render on
-   the card within -120 dBFS of the same render on the CPU; timing of the
-   bench's protocol (cached program, PCM16 render, pull, host stereo
-   duplication), the render's device time and a fresh-program render;
+4. tape: config 1's tables walked on the card (``program_tables``: its
+   span's ``on_card`` 1, one ``tape_tables`` launch); the lerp-read
+   kernel against its plain version at the full-size render's own
+   positions (bit-equal, timed, with its bound; no one PyTorch call
+   computes the read); the render through ``models.tape.render_tape``
+   and ``tape_table_render(out_i16=True)`` from an empty program memo
+   with every kernel launch counted (one ``tape_tables``: the render's
+   walk); output checks; the float render bit-equal to one made with the
+   plain read; the smoke-size render on the card within -120 dBFS of the
+   same render on the CPU; timing of the bench's protocol (cached
+   program, PCM16 render, pull, host stereo duplication), the render's
+   device time and a fresh-program render;
+4b. the tape's tables: ``tape_scan.cu``'s table walk held equal to the
+   C++ walk at config 1 and at 6 of the cell ``tape-c1-tweak``'s
+   requests, timed warm and L2 flushed (sums and walk apart, the sums
+   beside their operations bound), a whole call and the C++ walk; its row
+   counts the main path's walks (phase 4, the dry run, the CLI, the
+   harness) under ``launches_by_path``;
 5. Pattern Lab: the overlap-add kernel against its plain version at
    config 4's largest bucket (E 62, Lw 32 768, N 385 568, the render's own
    starts; bit-equal, timed with its bound, the plain version and
@@ -324,13 +336,21 @@ KERNELS = ("overlap_add", "lerp_read", "grain_scan", "tape_scan",
 WRAPPERS = ("overlap_add", "lerp_read", "scrub_read",
             "stick_slip_noise_scan", "chaos_scan", "waveguide_scan",
             "tape_scan", "voice_bank_fm", "voice_bank_psg", "voice_bank_fir",
-            "voice_bank_scan", "space_conv")
+            "voice_bank_scan", "space_conv", "tape_tables")
 F32_OP_S = F32_FLOP_S / 2  # unfused f32 multiplies or adds a second
 F64_OP_S = 132 * 64 * 1.98e9  # f64 instructions a second: SMs x f64 lanes
 #                               x the maximum SM clock
 SPACE_SEEDS = 7            # fresh seeds through _space_kernels, each device
 BANK_SEED = 123457         # the voice bank's timed programs
 TAPE_SECONDS = 180.0   # bench config 1's tape and target length
+TABLES_DRAWS = 6       # the cell tape-c1-tweak's requests held in phase 4b
+TABLES_MOD_OPS = 39    # f32 operations a sample's wow/flutter value needs
+#                        in the table walk's sums: two phases (2 each),
+#                        two detmath sines (13 each: 5 to fold the phase
+#                        and square it, then the quadrant's one polynomial,
+#                        the even one's 8 taken, the odd one's 9), the
+#                        depth sum (4), the clip (2), the grid rounding
+#                        (3); 3 more a speed (two multiplies, the rint)
 TAPE_FRAMES = 8745204  # its output frames after the retime
 PL_SECONDS = 8.0       # bench config 4's render length
 PROFILED_RENDERS = 3   # renders in a profiler window
@@ -969,6 +989,126 @@ def space_conv_path(dev, card: str) -> dict:
             "space_kernels_ms": layer, "space_kernels_miss_steps_ms": split}
 
 
+def tables_draws(count: int, seed: int):
+    """Config 1's parameters under the cell ``tape-c1-tweak``'s traffic
+    (``benchmark/engines/tape.py:request``): one section's speed x0.8-1.25,
+    then Fit to Target Time to 180 s."""
+    from audio_suite_torch.models import tape
+    n = int(48000 * TAPE_SECONDS)
+    base = config1(TAPE_SECONDS)[1]
+    rng = np.random.default_rng(seed)
+    for _ in range(count):
+        p = tape.TapeParams.from_snapshot(base.snapshot())
+        p.section_speeds[int(rng.integers(6))] *= float(rng.uniform(0.8,
+                                                                    1.25))
+        p.section_speeds = tape.fit_to_target_time(p, n, TAPE_SECONDS)
+        yield p, tape.section_render_length(p, n)
+
+
+def tape_tables_path(dev, card: str) -> dict:
+    """Phase 4b: the tape's control tables on the card, ``tape_scan.cu``'s
+    table walk (``varispeed.tape_tables_on_card``), held equal to the C++
+    walk (``native_rt.tape_tables``) at config 1 and at TABLES_DRAWS of
+    the cell's requests; at config 1 the kernel timed warm and with the
+    L2 flushed (its sums and walk apart), a whole call (the copy, the
+    launch, the pull) and the C++ walk it displaces; returns its row."""
+    from audio_suite_torch import kernels
+    from audio_suite_torch.models import tape
+    from audio_suite_torch.ops import varispeed
+    from audio_suite_torch.utils import native_rt
+
+    audio, p, frames = config1(TAPE_SECONDS)
+    n = len(audio)
+    progs = [tape.build_tape_program(audio, q, T, device="cpu")
+             for q, T in [(p, frames)] + list(tables_draws(TABLES_DRAWS, 25))]
+    n0 = kernels.tape_tables.launches
+    walked = []
+    for prog in progs:
+        args = (prog["num_frames"], n, prog["mod_consts"], prog["starts"],
+                prog["ends"], prog["speeds_q"], prog["reverse"],
+                prog["boundaries"])
+        want = native_rt.tape_tables(*args, len(prog["splice_env"]),
+                                     prog["consts"])
+        got, _, walk = varispeed.tape_tables_on_card(
+            *args, prog["splice_env"], prog["consts"], dev)
+        for k, v in want.items():
+            same = v == got[k] if k == "final" else (
+                v.dtype == got[k].dtype and np.array_equal(v, got[k]))
+            if not same:
+                raise AssertionError(f"tape_tables: {k} differs from the "
+                                     f"C++ walk's at T {args[0]}")
+        walked.append(walk["chunks_walked"])
+    checked = kernels.tape_tables.launches - n0
+    prog = progs[0]
+    args = (frames, n, prog["mod_consts"], prog["starts"], prog["ends"],
+            prog["speeds_q"], prog["reverse"], prog["boundaries"])
+    kargs = varispeed.tables_kernel_args(*args, prog["splice_env"],
+                                         prog["consts"], dev)
+
+    def launch():
+        return kernels.tape_tables(*kargs, kernels.TAPE_SCAN_CHUNK,
+                                   varispeed.TABLES_CAP)
+    warm = kernel_ms(launch, TIMED_KERNEL_RUNS, KERNEL_LAUNCHES)
+    cold = flushed_ms(launch, KERNEL_LAUNCHES)
+    sums = kernel_ms_in(launch, TIMED_RENDERS, "tables_sums")
+    walk_ms = kernel_ms_in(launch, TIMED_RENDERS, "tables_walk")
+    calls, cxx = [], []
+    for _ in range(TIMED_RENDERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        varispeed.tape_tables_on_card(*args, prog["splice_env"],
+                                      prog["consts"], dev)
+        t1 = time.perf_counter()
+        native_rt.tape_tables(*args, len(prog["splice_env"]), prog["consts"])
+        calls.append(1e3 * (t1 - t0))
+        cxx.append(1e3 * (time.perf_counter() - t1))
+    R = kargs[3]
+    bound = frames * (TABLES_MOD_OPS + 3 * R) / F32_OP_S * 1e3
+    nch = -(-frames // kernels.TAPE_SCAN_CHUNK)
+    print(f"tape_tables: config 1 and {TABLES_DRAWS} tweaks equal to the C++ "
+          f"walk ({len(progs)} programs, {checked} launches, walked chunks "
+          f"{walked} of {nch}); kernel warm {warm:.4f} ms (sums {sums:.4f}, "
+          f"walk {walk_ms:.4f}), L2 flushed {cold:.4f} ms; the sums' "
+          f"operations bound {bound:.4f} ms ({bound / sums:.1%} of it reached "
+          f"by the sums; the walk, one block's chain of decisions, has no "
+          f"bound here); a whole call (copy, launch, pull) median "
+          f"{statistics.median(calls):.3f} ms of {calls}; the C++ walk "
+          f"median {statistics.median(cxx):.3f} ms {card}", flush=True)
+    # "launches" and "launches_by_path" count the main path's walks (phase
+    # 4, the dry run, the CLI, the harness: main() adds them); phase 4b's
+    # own calls, which hold the kernel to the C++ walk, are "checked_calls"
+    return {"name": "tape_tables", "route": "cuda",
+            "source": "audio_suite_torch/kernels/tape_scan.cu",
+            "replaces": "native/ast_runtime.cpp:289 (ast_tape_tables, host)",
+            "launches": 0, "launches_by_path": {}, "checked_calls": checked,
+            "ms": warm, "ms_l2_flushed": cold, "bound_ms": None,
+            "bound_by": "none for the whole kernel (the walk is one block's "
+                        "chain of decisions); the sums' bound is "
+                        "sums_bound_ms",
+            "sums_ms": sums, "sums_bound_ms": bound,
+            "sums_bound_by": "operations", "walk_ms": walk_ms,
+            "call_ms": statistics.median(calls),
+            "cxx_walk_ms": statistics.median(cxx), "chunks_walked": walked,
+            "library_ms": None}
+
+
+def traced_tables(prog) -> tuple:
+    """``tape.program_tables(prog)`` under the tracer: (the tables, its
+    ``tape.tables`` span's ``on_card``)."""
+    from audio_suite_torch.models import tape
+    from audio_suite_torch.utils import profiling
+    profiling.reset()
+    profiling.enable()
+    try:
+        tables = tape.program_tables(prog)
+        (attrs,) = [r.attrs for r in profiling.records()
+                    if r.name == "tape.tables"]
+    finally:
+        profiling.disable()
+        profiling.reset()
+    return tables, attrs["on_card"]
+
+
 def tape_path(dev, card: str) -> dict:
     """Phase 4: the tape config-1 path; returns its kernel row."""
     from audio_suite_torch import kernels
@@ -983,18 +1123,26 @@ def tape_path(dev, card: str) -> dict:
     sr = p.sample_rate
     adev = torch.as_tensor(audio, device=dev)     # the tape, loaded once
     prog = tape.build_tape_program(adev, p, frames, device=dev)
-    # the shared C++ host runtime: g++ builds it on a fresh checkout, kept
-    # out of the table walk's time
+    # the shared C++ host runtime (g++ builds it on a fresh checkout) and
+    # the kernels' library, kept out of the table walk's time; on the card
+    # the walk is tape_scan.cu's (phase 4b holds it to the C++ walk)
     t0 = time.perf_counter()
     native_rt.get_lib()
+    kernels._lib("tape_scan")
     lib_s = time.perf_counter() - t0
+    reset_counts()
     t0 = time.perf_counter()
-    tables = tape.program_tables(prog)
+    tables, on_card = traced_tables(prog)
     walk_s = time.perf_counter() - t0
+    if on_card != 1 or read_counts()["tape_tables"] != 1:
+        raise AssertionError(f"config 1's tables did not walk on the card: "
+                             f"on_card {on_card}, tape_tables "
+                             f"{read_counts()['tape_tables']} launches")
     sizes = {k: len(tables[k]) for k in ("visit_start", "run_start",
                                          "triggers")}
-    print(f"tape: n {len(audio)} -> T {frames}; host runtime ready in "
-          f"{lib_s:.2f} s; tables {sizes}, C++ walk {walk_s * 1e3:.1f} ms",
+    print(f"tape: n {len(audio)} -> T {frames}; host runtime and library "
+          f"ready in {lib_s:.2f} s; tables {sizes}, walked on the card "
+          f"(on_card 1, one tape_tables launch) in {walk_s * 1e3:.1f} ms",
           flush=True)
 
     # kernel vs plain at the full-size render's own positions
@@ -1025,7 +1173,9 @@ def tape_path(dev, card: str) -> dict:
           "cannot address 8.64 M samples to a fraction)", flush=True)
 
     # the main path, every launch counted: the default render and the
-    # bench's PCM16 render of the cached program
+    # bench's PCM16 render of the cached program, from an empty memo so
+    # that the render walks its tables (on the card: one tape_tables)
+    tape._TAPE_PROG_CACHE.clear()
     reset_counts()
     y = tape.render_tape(adev, p, device=dev)
     cached = tape.build_tape_program_cached(adev, p, frames, device=dev)
@@ -1048,6 +1198,10 @@ def tape_path(dev, card: str) -> dict:
     if launches["lerp_read"] < 1:
         raise AssertionError("the render did not launch the lerp_read "
                              "kernel")
+    if launches["tape_tables"] != 1:
+        raise AssertionError(f"the render and its cached program launched "
+                             f"tape_tables {launches['tape_tables']} times, "
+                             f"not once")
     print(f"render: {frames} frames f32 peak {np.abs(y).max():.4f}, PCM16 "
           f"peak {peak16}; final {final}; kernel launches {launches}",
           flush=True)
@@ -1103,7 +1257,10 @@ def tape_path(dev, card: str) -> dict:
             "launches_per_render": launches["lerp_read"] / renders,
             "max_abs_err": lr_err, "ms": lr_ms, "ms_l2_flushed": cold_ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": None}
+            "library_ms": None,
+            # the table walks of the program_tables call and the counted
+            # render, for the tape_tables row (main() takes it out)
+            "tables_launches": 1 + launches["tape_tables"]}
 
 
 def bank_ops(is_psg: bool, alg: int, vib: bool, taps: tuple) -> int:
@@ -3480,7 +3637,7 @@ def parallel_path(dev, card: str) -> dict:
     notes = dryrun.dryrun_multichip(PAR_DRYRUN, devices=[dev] * PAR_DRYRUN)
     torch.cuda.synchronize()
     dry = read_counts()
-    for k in ("overlap_add", "lerp_read", "scrub_read"):
+    for k in ("overlap_add", "lerp_read", "scrub_read", "tape_tables"):
         if not dry[k]:
             raise AssertionError(f"the dry run did not launch {k}")
     print(f"dryrun: {len(notes)} checks on [cuda:0] x {PAR_DRYRUN}; "
@@ -3856,7 +4013,7 @@ def cli_path(dev, card: str) -> dict:
         runs.update(cli_forestfire_bench(dev, card, tmp))
     total = {k: sum(c[k] for c in runs.values()) for k in WRAPPERS}
     for k in ("overlap_add", "lerp_read", "scrub_read",
-              "stick_slip_noise_scan"):
+              "stick_slip_noise_scan", "tape_tables"):
         if not total[k]:
             raise AssertionError(f"the CLI runs launched no {k}")
     print(f"cli: launches over the {len(runs)} runs {total}", flush=True)
@@ -3866,7 +4023,7 @@ def cli_path(dev, card: str) -> dict:
 
 # ---- phase 13: the harness, the progress callback, the grid memo
 
-HARNESS_KERNELS = ("overlap_add", "lerp_read", "scrub_read")
+HARNESS_KERNELS = ("overlap_add", "lerp_read", "scrub_read", "tape_tables")
 PROGRESS_CHUNK = 96     # config 3's 270 events in 3 chunks
 
 _DEVICE_CELL = """import numpy as np
@@ -4073,6 +4230,10 @@ def main() -> int:
         print(json.dumps({"kernels": [space_conv_path(dev, card)]}))
         print(name_limit)
         return 0
+    if sys.argv[1:2] == ["--tables"]:
+        print(json.dumps({"kernels": [tape_tables_path(dev, card)]}))
+        print(name_limit)
+        return 0
     if sys.argv[1:2] == ["--bank"]:
         print(json.dumps({"kernels": [voice_bank_path(dev, card)]}))
         print(name_limit)
@@ -4090,6 +4251,10 @@ def main() -> int:
     oa_row, ms_counts = microsound_path(dev, card)
     sc_row = space_conv_path(dev, card)
     lr_row = tape_path(dev, card)
+    tt_row = tape_tables_path(dev, card)
+    # the table kernel's row counts the main path's walks: phase 4's and,
+    # below, the dry run's, the CLI's and the harness's
+    tt_row["launches_by_path"]["config1"] = lr_row.pop("tables_launches")
     pl_oa = patternlab_path(dev, card)
     vb_row = voice_bank_path(dev, card)
     vb_row["launches_by_path"]["config4"] = pl_oa["bank_launches"]
@@ -4154,7 +4319,12 @@ def main() -> int:
         if not vb_row["launches_by_path"][path]:
             raise AssertionError(f"the {path} path launched no voice bank")
         vb_row["launches"] += vb_row["launches_by_path"][path]
-    rows = [oa_row, lr_row, sr_row] + scan_rows_ + [ts_row, vb_row, sc_row]
+    tt_row["launches_by_path"].update(dryrun=par["dryrun"]["tape_tables"],
+                                      cli=cli["tape_tables"],
+                                      bench=bench_counts["tape_tables"])
+    tt_row["launches"] = sum(tt_row["launches_by_path"].values())
+    rows = [oa_row, lr_row, sr_row] + scan_rows_ + [ts_row, vb_row, sc_row,
+                                                    tt_row]
 
     print(json.dumps({"kernels": rows}))
     print(name_limit)

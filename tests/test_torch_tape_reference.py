@@ -144,5 +144,6 @@ def test_a_traced_render_is_a_root_over_its_six_stages():
         assert kids[1].attrs == {
             "hit": hit, "visits": len(tables["visit_start"]),
             "runs": len(tables["run_start"]),
-            "triggers": len(tables["triggers"])}
+            "triggers": len(tables["triggers"]), "on_card": 0,
+            "chunks_walked": 0, "chunks_jumped": 0}
         assert kids[1].attrs["visits"] >= 6 and kids[1].attrs["triggers"]

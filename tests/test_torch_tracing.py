@@ -5,8 +5,10 @@ per-layer metrics that use it), on the CPU:
 - off, a render leaves no record; on and off, the PCM is bit-identical;
 - on, every span of a Microsound and a Pattern Lab render is there once
   with its parent and its request, ``_space_kernels``' ``hit`` and
-  Pattern Lab's ``memo_hit`` say what the memos did, and a kernel
-  library's first load is a ``kernels.load`` span;
+  Pattern Lab's ``memo_hit`` say what the memos did, the tape's
+  ``tape.tables`` carries ``on_card`` and the walk's chunk counts beside
+  ``hit`` and the table sizes, and a kernel library's first load is a
+  ``kernels.load`` span;
 - the spans' starts agree with their ``record_function`` ranges under a
   CPU ``torch.profiler``; the store is bounded and counts its drops; the
   sync debug mode and the warning hooks come back on ``disable()``, and
@@ -187,6 +189,27 @@ def test_space_kernels_hit_is_false_then_true():
     hits = [r.attrs["hit"] for r in prof.records()
             if r.name == "microsound.space_kernels"]
     assert hits == [False, True]
+
+
+def test_the_tape_tables_span_carries_the_walk():
+    from audio_suite_torch.models import tape
+    tape._TAPE_PROG_CACHE.clear()
+    audio = np.random.default_rng(3).uniform(-0.5, 0.5, 8000) \
+        .astype(np.float32)
+    p = tape.TapeParams(sample_rate=8000, markers=[3000, 5000],
+                        section_speeds=[1.0, 2.0, 0.5],
+                        section_reverse=[False, True, False])
+    prof.enable()
+    for _ in range(2):
+        tape.render_tape(audio, p, device="cpu", pcm16=True)
+    recs = [r.attrs for r in prof.records() if r.name == "tape.tables"]
+    tape._TAPE_PROG_CACHE.clear()
+    assert [a["hit"] for a in recs] == [False, True]
+    for a in recs:
+        assert set(a) == {"hit", "visits", "runs", "triggers", "on_card",
+                          "chunks_walked", "chunks_jumped"}
+        assert a["on_card"] == a["chunks_walked"] == a["chunks_jumped"] == 0
+        assert a["visits"] >= 3 and a["runs"] >= 3
 
 
 def test_a_kernel_librarys_first_load_is_a_span(monkeypatch):
